@@ -1,0 +1,28 @@
+"""PyTorch / CUDA port of the ``repro`` serving stack, for one NVIDIA H100.
+
+Module names follow ``repro`` so each module's reference is easy to find.
+The package imports torch and numpy only: never JAX, never ``repro``.
+Entry points run on ``cuda`` unless the caller asks for ``"cpu"``; on a
+CPU tensor every kernel wrapper runs its plain PyTorch version instead.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """``"cpu"`` stays the CPU; anything else must be a visible CUDA device."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return dev
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} asked for, but torch sees no CUDA device; "
+            "pass device='cpu' to run the plain PyTorch path")
+    return dev
+
+
+__all__ = ["resolve_device"]

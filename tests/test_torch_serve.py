@@ -1,0 +1,102 @@
+"""repro_torch.launch.serve end to end on the CPU, and the port's isolation.
+
+The serving entry point runs the reduced qwen1.5-0.5b through the kernels'
+plain versions and must print the reference's serving lines, with a
+page-run coalescing dict equal to the reference planner's on the same
+page table. The port must import neither JAX nor the ``repro`` package.
+On a GPU machine without JAX, the card's case runs with
+``PYTHONPATH=src python -m pytest --noconftest tests/test_torch_serve.py -k gpu``.
+"""
+
+import ast
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # small shapes; leave the cores to parallel test workers
+
+from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
+from repro_torch.kernels.paged_attention import ops as pa  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+CPU_ARGS = ["--reduced", "--device", "cpu", "--batch", "3", "--prompt-len", "20",
+            "--gen", "6", "--page-tokens", "4"]
+
+
+def test_serve_prints_the_reference_lines(capsys):
+    ref_ops = pytest.importorskip("repro.kernels.paged_attention.ops")
+    res = serve.main(CPU_ARGS)
+    out = capsys.readouterr().out.splitlines()
+    assert out[-1] == "SERVING DONE"
+    assert re.fullmatch(r"prefill 20 tokens × 3 seqs in [0-9.]+s", out[0])
+    assert re.fullmatch(r"decode 6 steps × 3 seqs: [0-9.,]+ tok/s", out[1])
+    ids = ast.literal_eval(out[2].removeprefix("sample continuation token ids: "))
+    assert ids == res.generated[0].tolist()
+    stats = ast.literal_eval(out[3].removeprefix("page-run coalescing: "))
+    # 26 tokens in pages of 4: 7 contiguous pages a sequence, blocks of 4 + 3
+    assert res.cache.page_table.shape == (3, 7)
+    assert stats == ref_ops.descriptor_stats(res.cache.page_table, 4)
+    assert stats == {"pages": 21, "descriptors": 6, "reduction": 3.5}
+    # greedy: each step's token is the argmax of the step before
+    vocab = res.model.cfg.vocab_size
+    greedy = res.decode_logits[:, :, :vocab].argmax(-1).numpy()
+    np.testing.assert_array_equal(res.generated, greedy)
+    np.testing.assert_array_equal(res.fed[:, 1:].numpy(), greedy[:, :-1])
+    assert torch.isfinite(res.decode_logits.float()).all()
+
+
+@pytest.mark.parametrize("flags", [["--spill"], ["--donors", "3"],
+                                   ["--clients", "2"], ["--straggler", "1:30"]])
+def test_serve_refuses_the_engine_flags(flags, capsys):
+    with pytest.raises(SystemExit):
+        serve.main(CPU_ARGS + flags)
+    assert "ROADMAP item 8" in capsys.readouterr().err
+
+
+def test_serve_on_gpu_goes_through_both_kernels():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    fa.launches = pa.launches = 0
+    res = serve.main(["--reduced", "--batch", "2", "--prompt-len", "16", "--gen", "4"])
+    layers = res.model.cfg.num_layers
+    assert (fa.launches, pa.launches) == (layers, layers * 4)
+    assert torch.isfinite(res.decode_logits.float()).all()
+
+
+def test_serve_needs_a_gpu_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--reduced"])
+
+
+ISOLATION = """
+import importlib, pkgutil, sys
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+bad = sorted(n for n in sys.modules
+             if n in ("jax", "repro") or n.startswith(("jax.", "repro.")))
+print("LEAKED", bad)
+"""
+
+
+def test_port_imports_neither_jax_nor_repro():
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
+    proc = subprocess.run([sys.executable, "-c", ISOLATION], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "LEAKED []"
+    sources = [*sorted((ROOT / "src" / "repro_torch").rglob("*.py")),
+               ROOT / "chip_smoke.py"]
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+    offenders = [str(p) for p in sources if pattern.search(p.read_text())]
+    assert offenders == []
