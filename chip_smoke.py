@@ -6,7 +6,8 @@
 Phases, each printing one JSON line:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: compile every ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a;
+2. build: compile every ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a, one
+   nvcc per source, all started together;
 3. kernels vs plain: each CUDA kernel against its plain PyTorch version on the
    card, at the reference suite's shapes and at the serving shapes;
 4. serve: ``repro_torch.launch.serve.main`` at full width (qwen1.5-0.5b, batch 4,
@@ -14,7 +15,13 @@ Phases, each printing one JSON line:
    before and read just after; the decode logits against one forward pass over
    prompt + generated tokens;
 5. profile: device time by kernel over 8 decode steps (torch.profiler);
-6. kernels: each kernel's time at the serving shapes (CUDA-graph replay, so no
+6. serve_ssm: the same for mamba2-780m at full width (batch 4, prompt 512 = two
+   scan chunks of 256, 256 decode steps), through the SSD chunk-scan kernel;
+7. profile_ssm: device time by kernel for one mamba2 prefill and 8 decode steps;
+8. ssm_f32: the decode-vs-forward bound for mamba2 on an f32 copy of the served
+   weights, over the served tokens (in bf16 the random full-width model
+   amplifies rounding past the bound, the JAX reference as much as the port);
+9. kernels: each kernel's time at the serving shapes (CUDA-graph replay, so no
    host gaps), its plain version's, the bound of the card, and a library call's.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and the
@@ -42,6 +49,8 @@ from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 
 # NVIDIA H100 SXM data sheet, dense rates at the 700 W limit
@@ -52,6 +61,20 @@ ARCH, BATCH, PROMPT, GEN, PAGE_TOKENS = "qwen1.5-0.5b", 4, 64, 32, 16
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 PAGED_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 DECODE_VS_FORWARD_TOL = 0.05      # tests/test_models.py's bf16 tolerance
+SSM_ARCH, SSM_PROMPT, SSM_GEN = "mamba2-780m", 512, 256
+SSD_TOL = 1e-4                    # tests/test_kernels.py::test_ssd_vs_ref
+# At the serving shape cs = cumsum(dt·A) runs to −O(100..500) over a chunk of
+# 256, and every L_ij = exp(cs_i − cs_j) is a difference of two such sums,
+# rounded in another order on each side (a sequential cumsum in the plain
+# version, a tree scan in the kernel): ~|cs|·2⁻²⁴ per rounding, a few of them,
+# gives L_ij a relative error up to ~1e-4, and y sums 256 × 128 such terms.
+SSD_SERVING_TOL = 1e-3
+SSD_SHAPES = [     # B, L, H, P, N, chunk (tests/test_kernels.py::test_ssd_vs_ref)
+    (2, 128, 3, 16, 8, 32),
+    (1, 64, 2, 32, 16, 64),
+    (2, 96, 4, 8, 4, 16),
+    (1, 256, 1, 64, 32, 64),
+]
 FLASH_SHAPES = [   # Sq, Skv, H, Kh, D, causal, window (tests/test_kernels.py)
     (128, 128, 4, 2, 32, True, None),
     (128, 128, 4, 4, 64, False, None),
@@ -200,9 +223,74 @@ def phase_compare(dev: torch.device) -> dict:
         main_err[("paged", dtype)] = max_err(
             out, pa.paged_attention_plain(q, kv, *plan, lengths, pages_per_block=4),
             tol, f"paged {dtype} serving shape")
+    report["ssd"], main_err[("ssd", torch.float32)] = compare_ssd(dev, gen)
     emit({"phase": "kernels_vs_plain", **report,
           "serving_shape_max_abs_err": {f"{k}/{d}": e for (k, d), e in main_err.items()}})
     return main_err
+
+
+def ssd_inputs(dev, gen, B, L, H, P, N, *, model_like=False):
+    """tests/test_kernels.py's SSD distributions; ``model_like`` draws dt and
+    A as mamba2's mixer makes them (softplus of a projection, −exp(A_log)),
+    so exp(cs) underflows to 0 within a chunk of 256."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device=dev)
+
+    x, Bm, Cm = randn(B, L, H, P) * 0.5, randn(B, L, N) * 0.5, randn(B, L, N) * 0.5
+    if model_like:
+        dt = torch.nn.functional.softplus(randn(B, L, H))
+        A = -torch.exp(rand(H) * 1.5)
+    else:
+        dt = 0.01 + 0.19 * rand(B, L, H)
+        A = -(0.5 + 1.5 * rand(H))
+    return x, Bm, Cm, dt, A
+
+
+def ssd_serving_shape():
+    cfg = get_config(SSM_ARCH)
+    return (BATCH, SSM_PROMPT, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+            cfg.ssm_chunk)
+
+
+def compare_ssd(dev, gen) -> tuple[list, float]:
+    """ssd_scan against ssd_chunked and the sequential ssd_ref, and h_final
+    against ssd_chunked's; returns (report, serving-shape max |err| of y)."""
+    torch.backends.cuda.matmul.allow_tf32 = False     # the plain side in true f32
+    report = []
+
+    def check(what, args, chunk, tol, oracle=True):
+        y, h = ssd.ssd_scan_op(*args, chunk=chunk, return_state=True)
+        torch.cuda.synchronize()
+        y_plain, h_plain = ssd_chunked(*args, chunk=chunk)
+        err = max_err(y, y_plain, tol, f"ssd {what}")
+        row = {"case": what, "shape": list(args[0].shape), "N": args[1].shape[-1],
+               "chunk": chunk, "tol": tol, "max_abs_err": err,
+               "h_final_max_abs_err": max_err(h, h_plain, tol, f"ssd {what} h_final")}
+        if oracle:
+            row["vs_ssd_ref_max_abs_err"] = max_err(y, ssd_ref(*args), tol,
+                                                    f"ssd {what} vs oracle")
+        report.append(row)
+        return y, err
+
+    for B, L, H, P, N, chunk in SSD_SHAPES:
+        check("reference shape", ssd_inputs(dev, gen, B, L, H, P, N), chunk, SSD_TOL)
+    # state continuity: splitting L into more chunks changes nothing
+    args = ssd_inputs(dev, gen, 1, 128, 2, 8, 4)
+    args = (*args[:4], -torch.ones(2, device=dev))
+    y16, _ = check("continuity chunk 16", args, 16, SSD_TOL)
+    y128, _ = check("continuity chunk 128", args, 128, SSD_TOL)
+    report.append({"case": "continuity 16 vs 128",
+                   "max_abs_err": max_err(y16, y128, SSD_TOL, "ssd continuity")})
+    B, L, H, P, N, K = ssd_serving_shape()
+    check("serving shape, test distributions", ssd_inputs(dev, gen, B, L, H, P, N), K,
+          SSD_SERVING_TOL)
+    _, err = check("serving shape, model-like dt and A",
+                   ssd_inputs(dev, gen, B, L, H, P, N, model_like=True), K,
+                   SSD_SERVING_TOL, oracle=False)
+    return report, err
 
 
 def paged_inputs(dev, gen, dtype):
@@ -227,14 +315,14 @@ def phase_serve(dev: torch.device) -> dict:
     emit({"phase": "serve_warmup", "note": "2 decode steps: cuBLAS and allocator warm-up"})
     serve.main(args + ["--gen", "2"])             # its model is dropped here
     torch.cuda.empty_cache()
-    fa.launches = pa.launches = 0
+    reset_launches()
     res = serve.main(args + ["--gen", str(GEN)])
     torch.cuda.synchronize()
-    launches = {"flash_attention": fa.launches, "paged_attention": pa.launches}
-    if launches != {"flash_attention": cfg.num_layers,
-                    "paged_attention": cfg.num_layers * GEN}:
-        raise AssertionError(f"serving path launches {launches}, want "
-                             f"{cfg.num_layers} flash and {cfg.num_layers * GEN} paged")
+    launches = read_launches()
+    want = {"flash_attention": cfg.num_layers, "paged_attention": cfg.num_layers * GEN,
+            "ssd_scan": 0}
+    if launches != want:
+        raise AssertionError(f"serving path launches {launches}, want {want}")
     logits = res.decode_logits.float()
     if tuple(logits.shape) != (BATCH, GEN, cfg.padded_vocab) or not torch.isfinite(
             logits).all():
@@ -253,21 +341,86 @@ def phase_serve(dev: torch.device) -> dict:
     return {"launches": launches, "model": res.model, "prompts": res.prompts}
 
 
+LAUNCH_COUNTERS = {"flash_attention": fa, "paged_attention": pa, "ssd_scan": ssd}
+
+
+def reset_launches() -> None:
+    for mod in LAUNCH_COUNTERS.values():
+        mod.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: mod.launches for name, mod in LAUNCH_COUNTERS.items()}
+
+
 @torch.no_grad()
-def phase_profile(model, prompts) -> None:
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    steps = 8
-    cache = model.init_cache(BATCH, PROMPT + steps, page_tokens=PAGE_TOKENS)
-    tok = model.prefill(prompts, cache)[:, : model.cfg.vocab_size].argmax(-1)
+def phase_serve_ssm() -> dict:
+    """mamba2-780m at full width: prefill of 512 tokens (two scan chunks of
+    256, so the state crosses a chunk boundary on the serving path), 256
+    greedy decode steps, and a forward over the 768 = 3 × 256 tokens."""
+    cfg = get_config(SSM_ARCH)
+    args = ["--arch", SSM_ARCH, "--batch", str(BATCH), "--prompt-len", str(SSM_PROMPT)]
+    emit({"phase": "serve_ssm_warmup", "note": "2 decode steps: cuBLAS and allocator "
+                                               "warm-up"})
+    serve.main(args + ["--gen", "2"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = serve.main(args + ["--gen", str(SSM_GEN)])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(steps):
-            logits = model.decode_step(cache, tok, np.full(BATCH, PROMPT + i))
-            tok = logits[:, : model.cfg.vocab_size].argmax(-1)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = {"flash_attention": 0, "paged_attention": 0, "ssd_scan": cfg.num_layers}
+    if launches != want:
+        raise AssertionError(f"SSM serving path launches {launches}, want {want}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    logits = res.decode_logits.float()
+    if tuple(logits.shape) != (BATCH, SSM_GEN, cfg.padded_vocab) or not torch.isfinite(
+            logits).all():
+        raise AssertionError(f"SSM decode logits: shape {tuple(logits.shape)}, "
+                             "or not finite")
+    # recorded, not held to the bound: at 48 layers the random-weight model
+    # amplifies bf16 rounding (the JAX reference as much), see phase_ssm_f32
+    full = res.model(torch.cat([res.prompts, res.fed], dim=1))[:, SSM_PROMPT:].float()
+    rel = ((full - logits).abs().max() / full.abs().max().clamp(min=1.0)).item()
+    del full
+    emit({"phase": "serve_ssm", "arch": SSM_ARCH, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "ssm_heads": cfg.ssm_heads,
+          "ssm_head_dim": cfg.ssm_head_dim, "ssm_state": cfg.ssm_state,
+          "ssm_chunk": cfg.ssm_chunk, "padded_vocab": cfg.padded_vocab,
+          "params": sum(p.numel() for p in res.model.parameters()),
+          "batch": BATCH, "prompt": SSM_PROMPT, "gen": SSM_GEN,
+          "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+          "decode_tok_s": SSM_GEN * BATCH / res.decode_s, "launches": launches,
+          "decode_vs_forward_rel_err_bf16": rel, "peak_mem_gb": peak_gb})
+    return {"launches": launches, "model": res.model, "prompts": res.prompts,
+            "fed": res.fed}
+
+
+@torch.no_grad()
+def phase_ssm_f32(model, prompts, fed) -> None:
+    """Decode against the forward with the served weights cast to f32 (in
+    place), on the served prompts and fed tokens: prefill of two chunks
+    through the kernel, 256 recurrent steps from its final state, and one
+    forward over the 768 = 3 × 256 tokens, held to the 0.05 bound."""
+    model.float()
+    cache = model.init_cache(BATCH, SSM_PROMPT + SSM_GEN)
+    model.prefill(prompts, cache)
+    dec = torch.stack([model.decode_step(cache, fed[:, i], np.full(BATCH, SSM_PROMPT + i))
+                       for i in range(SSM_GEN)], dim=1)
+    full = model(torch.cat([prompts, fed], dim=1))[:, SSM_PROMPT:]
+    if not (torch.isfinite(dec).all() and torch.isfinite(full).all()):
+        raise AssertionError("SSM f32 logits not finite")
+    err = (full - dec).abs().amax(dim=(0, 2)) / full.abs().max().clamp(min=1.0)
+    rel = err.max().item()
+    if not rel < DECODE_VS_FORWARD_TOL:
+        raise AssertionError(f"SSM decode vs forward in f32: relative error {rel:.4f}")
+    emit({"phase": "ssm_f32", "decode_vs_forward_rel_err": rel,
+          "rel_err_at_steps": {i: err[i].item() for i in sorted(
+              {0, SSM_GEN // 16 - 1, SSM_GEN // 4 - 1, SSM_GEN // 2 - 1, SSM_GEN - 1})}})
+
+
+def kernel_rows(prof) -> list:
+    from torch.autograd import DeviceType
     rows = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:     # kernels only: no double count
@@ -276,12 +429,58 @@ def phase_profile(model, prompts) -> None:
         rows.append({"name": ev.key[:80], "count": ev.count,
                      "device_us": ev.self_cuda_time_total if us is None else us})
     rows.sort(key=lambda r: -r["device_us"])
+    return rows
+
+
+def profiled(fn) -> tuple[list, float]:
+    """Kernel rows and host wall seconds of ``fn()``, which ends in a sync."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return kernel_rows(prof), wall
+
+
+def decode_steps(model, cache, tok, start: int, steps: int) -> None:
+    for i in range(steps):
+        logits = model.decode_step(cache, tok, np.full(BATCH, start + i))
+        tok = logits[:, : model.cfg.vocab_size].argmax(-1)
+
+
+def profile_summary(rows: list, wall: float, steps: int) -> dict:
     busy_us = sum(r["device_us"] for r in rows)
-    emit({"phase": "profile", "decode_steps": steps, "wall_ms": wall * 1e3,
-          "kernels_per_step": sum(r["count"] for r in rows) / steps,
-          "device_busy_ms": busy_us / 1e3,
-          "device_idle_share": 1 - busy_us / 1e3 / (wall * 1e3) if wall else None,
-          "top": rows[:12]})
+    return {"wall_ms": wall * 1e3, "kernels_per_step": sum(r["count"] for r in rows) / steps,
+            "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1 - busy_us / 1e3 / (wall * 1e3) if wall else None,
+            "top": rows[:12]}
+
+
+@torch.no_grad()
+def phase_profile(model, prompts) -> None:
+    steps = 8
+    cache = model.init_cache(BATCH, PROMPT + steps, page_tokens=PAGE_TOKENS)
+    tok = model.prefill(prompts, cache)[:, : model.cfg.vocab_size].argmax(-1)
+    torch.cuda.synchronize()
+    rows, wall = profiled(lambda: decode_steps(model, cache, tok, PROMPT, steps))
+    emit({"phase": "profile", "decode_steps": steps, **profile_summary(rows, wall, steps)})
+
+
+@torch.no_grad()
+def phase_profile_ssm(model, prompts) -> None:
+    steps = 8
+    cache = model.init_cache(BATCH, SSM_PROMPT + steps)
+    out = {}
+    rows, wall = profiled(lambda: out.setdefault("logits", model.prefill(prompts, cache)))
+    scan_us = sum(r["device_us"] for r in rows if "ssd_scan" in r["name"])
+    prefill = profile_summary(rows, wall, 1)
+    prefill["ssd_scan_device_ms"] = scan_us / 1e3
+    prefill["ssd_scan_share_of_device_time"] = scan_us / 1e3 / prefill["device_busy_ms"]
+    tok = out["logits"][:, : model.cfg.vocab_size].argmax(-1)
+    rows, wall = profiled(lambda: decode_steps(model, cache, tok, SSM_PROMPT, steps))
+    emit({"phase": "profile_ssm", "prefill": prefill, "decode_steps": steps,
+          "decode": profile_summary(rows, wall, steps)})
 
 
 def phase_kernels(dev: torch.device, main_err: dict, launches: dict) -> None:
@@ -330,7 +529,39 @@ def phase_kernels(dev: torch.device, main_err: dict, launches: dict) -> None:
         "shape": {"q": list(pq.shape), "pool": list(pkv.shape), "tokens": tokens,
                   "dtype": "bf16"},
     }
-    emit({"kernels": [flash, paged]})
+    x, Bm, Cm, dt_, A = ssd_inputs(dev, gen, *ssd_serving_shape()[:5], model_like=True)
+    B_, L_, H_, P_, N_, K_ = ssd_serving_shape()
+    sb, sby = bound_ms(*ssd_work(B_, L_, H_, P_, N_, K_), torch.float32)
+    scan = {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:66",
+        "launches": launches["ssd_scan"],
+        "max_abs_err": main_err[("ssd", torch.float32)],
+        "ms": device_ms(lambda: ssd.ssd_scan_op(x, Bm, Cm, dt_, A, chunk=K_,
+                                                return_state=True)),
+        "plain_ms": device_ms(lambda: ssd_chunked(x, Bm, Cm, dt_, A, chunk=K_)),
+        "bound_ms": sb, "bound_by": sby, "library_ms": None,
+        "shape": {"x": list(x.shape), "N": N_, "chunk": K_, "dtype": "f32",
+                  "h_final": True},
+    }
+    emit({"kernels": [flash, paged, scan]})
+
+
+def ssd_work(B: int, L: int, H: int, P: int, N: int, K: int) -> tuple[int, int]:
+    """(bytes, flops) of one SSD scan with the final state written.
+
+    Bytes: x, Bm, Cm, dt and A read once, y and h_final written once (f32).
+    Flops, per (b, chunk): C·Bᵀ over the causal half, K(K+1)/2 dots of N,
+    once (it is shared by every head); per (b, h, chunk): the masked scores
+    times x over the causal half (P per score), C·h_prev (K·N·P) and the
+    state update (K·N·P); 2 flops a multiply-add. Elementwise work (the
+    scan of dt·A, the exps, the masks) is left out.
+    """
+    n_chunks, tri = L // K, K * (K + 1) // 2
+    flops = 2 * B * n_chunks * (N * tri + H * (P * tri + 2 * K * N * P))
+    nbytes = 4 * (2 * B * L * H * P + 2 * B * L * N + B * L * H + H + B * H * N * P)
+    return nbytes, flops
 
 
 def main() -> None:
@@ -340,7 +571,16 @@ def main() -> None:
     main_err = phase_compare(dev)
     served = phase_serve(dev)
     phase_profile(served["model"], served["prompts"])
-    phase_kernels(dev, main_err, served["launches"])
+    launches = served["launches"]
+    del served                                    # free qwen's weights and pool
+    torch.cuda.empty_cache()
+    served = phase_serve_ssm()
+    phase_profile_ssm(served["model"], served["prompts"])
+    phase_ssm_f32(served["model"], served["prompts"], served["fed"])
+    launches["ssd_scan"] = served["launches"]["ssd_scan"]
+    del served
+    torch.cuda.empty_cache()
+    phase_kernels(dev, main_err, launches)
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -6,7 +6,7 @@ import importlib
 
 from .base import ModelConfig
 
-ARCH_IDS = ["qwen1.5-0.5b"]
+ARCH_IDS = ["qwen1.5-0.5b", "mamba2-780m"]
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

@@ -1,13 +1,18 @@
-"""Batched serving: prefill → greedy decode over a paged KV pool.
+"""Batched serving: prefill → greedy decode over the model's decode cache.
 
-The port of ``repro/launch/serve.py``. Prefill runs every layer through
-the flash-attention kernel and writes its K/V into device pages; each
-decode step plans the page-run blocks once on the host and runs every
-layer through the paged-attention kernel. Weights come from a seeded
-init, so nothing is downloaded.
+The port of ``repro/launch/serve.py``. For a dense-GQA arch, prefill runs
+every layer through the flash-attention kernel and writes its K/V into
+device pages; each decode step plans the page-run blocks once on the host
+and runs every layer through the paged-attention kernel. For an SSM arch
+(mamba2-780m), prefill runs every layer through the SSD chunk-scan kernel
+and keeps each layer's final (conv, h) state; decode is the O(1)
+recurrent update. Weights come from a seeded init, so nothing is
+downloaded.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --batch 4 --prompt-len 64 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
+      --batch 4 --prompt-len 512 --gen 256
 
 ``--device cpu`` runs the plain PyTorch versions of the kernels instead.
 The remote-KV tier (``--spill``) and the fabric flags need the RDMAbox
@@ -19,7 +24,7 @@ from __future__ import annotations
 import argparse
 import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
@@ -27,7 +32,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.kernels.paged_attention.ops import descriptor_stats
-from repro_torch.models import PagedKVPool, Transformer, init_transformer
+from repro_torch.models import PagedKVPool, SSMCache, Transformer, init_transformer
 
 PAGES_PER_BLOCK = 4
 ENGINE_FLAGS = ("spill", "donors", "clients", "replication", "link_latency_us",
@@ -37,7 +42,7 @@ ENGINE_FLAGS = ("spill", "donors", "clients", "replication", "link_latency_us",
 @dataclass
 class ServeResult:
     model: Transformer
-    cache: PagedKVPool
+    cache: Union[PagedKVPool, SSMCache]
     prompts: torch.Tensor          # (B, prompt_len)
     fed: torch.Tensor              # (B, gen): the token each decode step took
     decode_logits: torch.Tensor    # (B, gen, padded_vocab)
@@ -80,8 +85,12 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
                  "(ROADMAP item 8)")
     if args.gen < 1:
         ap.error("--gen must be at least 1")
-    device = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if (cfg.uses_ssm and args.prompt_len > cfg.ssm_chunk
+            and args.prompt_len % cfg.ssm_chunk):
+        ap.error("seq_len must be a multiple of ssm_chunk "
+                 f"(--prompt-len {args.prompt_len}, ssm_chunk {cfg.ssm_chunk})")
+    device = resolve_device(args.device)
     B, S = args.batch, args.prompt_len + args.gen
     rng = np.random.default_rng(0)
 
@@ -116,7 +125,9 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
     fed_t = torch.stack(fed, dim=1)
     generated = torch.cat([fed_t[:, 1:], tok[:, None]], dim=1).cpu().numpy()
     print("sample continuation token ids:", generated[0, :16].tolist())
-    print("page-run coalescing:", descriptor_stats(cache.page_table, PAGES_PER_BLOCK))
+    if isinstance(cache, PagedKVPool):
+        print("page-run coalescing:",
+              descriptor_stats(cache.page_table, PAGES_PER_BLOCK))
     print("SERVING DONE")
     return ServeResult(model, cache, prompts, fed_t,
                        torch.stack(step_logits, dim=1), generated, prefill_s,

@@ -23,20 +23,23 @@ def weight(*shape: int, device: torch.device) -> nn.Parameter:
 def init_weights(module: nn.Module, *, seed: int) -> None:
     """The reference's init rule, from a torch generator seeded with ``seed``.
 
-    Norm weights are ones and 1-D biases zeros; ``embed`` is N(0, 1); every
-    other matrix is N(0, 1) · fan_in^-0.5. The draws differ from JAX's, so
-    parity tests load the reference's weights instead (``convert``).
+    Norm weights are ones and 1-D biases zeros; the SSM's ``A_log`` and
+    ``D`` are ones (``dt_bias`` and ``conv_b`` are 1-D, so zeros); ``embed``
+    is N(0, 1), the SSM's ``conv_w`` N(0, 0.5²); every other matrix is
+    N(0, 1) · fan_in^-0.5. The draws differ from JAX's, so parity tests load
+    the reference's weights instead (``convert``).
     """
     dev = next(module.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(seed)
+    scales = {"embed": 1.0, "conv_w": 0.5}
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if "norm" in leaf:
+        if "norm" in leaf or leaf in ("A_log", "D"):
             p.fill_(1.0)
         elif p.ndim == 1:
             p.zero_()
         else:
-            scale = 1.0 if leaf == "embed" else p.shape[0] ** -0.5
+            scale = scales.get(leaf, p.shape[0] ** -0.5)
             p.copy_(torch.randn(p.shape, generator=gen, device=dev) * scale)
 
 

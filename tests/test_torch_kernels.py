@@ -24,10 +24,21 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_ref, flash_attention_online)
 from repro_torch.kernels.paged_attention import ops as pa  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_ref as ssd_oracle  # noqa: E402
 
 DTYPES = ["float32", "bfloat16"]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}    # test_flash_vs_ref
 PAGED_TOL = {"float32": 1e-5, "bfloat16": 3e-2}    # test_paged_attention_vs_ref
+
+SSD_TOL = 1e-4                                    # test_ssd_vs_ref
+SSD_SHAPES = [     # B, L, H, P, N, chunk (tests/test_kernels.py::test_ssd_vs_ref)
+    (2, 128, 3, 16, 8, 32),
+    (1, 64, 2, 32, 16, 64),
+    (2, 96, 4, 8, 4, 16),
+    (1, 256, 1, 64, 32, 64),
+]
 
 FLASH_SHAPES = [   # Sq, Skv, H, Kh, D, causal, window, Pallas q_block, kv_block
     (128, 128, 4, 2, 32, True, None, 64, 64),
@@ -46,8 +57,11 @@ def ref():
     from repro.kernels.flash_attention.ref import attention_ref as flash_oracle
     from repro.kernels.paged_attention import ops as paged_ops
     from repro.kernels.paged_attention.ref import paged_attention_ref as paged_oracle
+    from repro.kernels.ssd_scan.ops import ssd_scan_op
+    from repro.kernels.ssd_scan.ref import ssd_ref
     return SimpleNamespace(jnp=jnp, flash=flash_attention_op, flash_oracle=flash_oracle,
-                           paged=paged_ops, paged_oracle=paged_oracle)
+                           paged=paged_ops, paged_oracle=paged_oracle, ssd=ssd_scan_op,
+                           ssd_oracle=ssd_ref)
 
 
 @pytest.fixture
@@ -202,6 +216,109 @@ def test_paged_kernel_vs_plain_on_gpu(cuda, dtype):
             plain = pa.paged_attention_plain(q.cpu(), kv.cpu(), *plan, lengths,
                                              pages_per_block=R)
             close(out, plain, tol)
+
+
+# ---------------------------------------------------------------------------
+# SSD chunk scan
+# ---------------------------------------------------------------------------
+
+def ssd_inputs(rng, B, L, H, P, N, A=None):
+    """test_ssd_vs_ref's distributions as float32 numpy arrays."""
+    x = (rng.normal(size=(B, L, H, P)) * 0.5).astype(np.float32)
+    Bm = (rng.normal(size=(B, L, N)) * 0.5).astype(np.float32)
+    Cm = (rng.normal(size=(B, L, N)) * 0.5).astype(np.float32)
+    dt = rng.uniform(0.01, 0.2, size=(B, L, H)).astype(np.float32)
+    if A is None:
+        A = -rng.uniform(0.5, 2.0, size=(H,)).astype(np.float32)
+    return x, Bm, Cm, dt, A
+
+
+@pytest.mark.parametrize("B,L,H,P,N,chunk", SSD_SHAPES)
+def test_ssd_plain_vs_reference(ref, B, L, H, P, N, chunk):
+    """The port's wrapper (CPU: ssd_chunked) and its oracle against the JAX
+    Pallas kernel (interpret mode) and the JAX oracle, on the same inputs."""
+    arrays = ssd_inputs(np.random.default_rng(B + L + H + P + N + chunk), B, L, H, P, N)
+    jx = [ref.jnp.asarray(a) for a in arrays]
+    tx = [torch.from_numpy(a) for a in arrays]
+    pallas = ref.ssd(*jx, chunk=chunk)
+    oracle = ref.ssd_oracle(*jx)
+    out = ssd.ssd_scan_op(*tx, chunk=chunk)
+    assert out.dtype == torch.float32 and out.shape == (B, L, H, P)
+    close(out, pallas, SSD_TOL)
+    close(out, oracle, SSD_TOL)
+    close(ssd_oracle(*tx), oracle, SSD_TOL)
+    y, h = ssd_chunked(*tx, chunk=chunk)
+    close(y, oracle, SSD_TOL)
+    assert h.shape == (B, H, N, P) and h.dtype == torch.float32
+
+
+def test_ssd_state_continuity_across_chunks(ref):
+    """Splitting L into more chunks must not change the result (twin of
+    tests/test_kernels.py::test_ssd_state_continuity_across_chunks), nor the
+    final state."""
+    B, L, H, P, N = 1, 128, 2, 8, 4
+    arrays = ssd_inputs(np.random.default_rng(11), B, L, H, P, N,
+                        A=-np.ones((H,), np.float32))
+    tx = [torch.from_numpy(a) for a in arrays]
+    a, ha = ssd.ssd_scan_op(*tx, chunk=16, return_state=True)
+    b, hb = ssd.ssd_scan_op(*tx, chunk=128, return_state=True)
+    close(a, b, SSD_TOL)
+    close(ha, hb, SSD_TOL)
+    close(a, ref.ssd(*[ref.jnp.asarray(x) for x in arrays], chunk=16), SSD_TOL)
+
+
+def test_ssd_final_state_matches_ssm_train(ref):
+    """h_final against the reference's ssm_train(..., return_state=True)["h"]:
+    the scan inputs are formed from the reference's own projections and conv
+    (ssm.py:73-84) and fed to the port's scan."""
+    import jax
+    from repro.configs import get_reduced
+    from repro.models.layers import SpecTree
+    from repro.models.ssm import _conv_scan, init_ssm, ssm_train
+    jnp = ref.jnp
+    cfg = get_reduced("mamba2-780m")
+    p = init_ssm(jax.random.PRNGKey(0), cfg, SpecTree())
+    p["A_log"] = jnp.asarray(np.random.default_rng(1).normal(size=cfg.ssm_heads),
+                             jnp.bfloat16)
+    B, L = 2, 2 * cfg.ssm_chunk
+    H, P, N, Din = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_heads * cfg.ssm_head_dim
+    x = jnp.asarray(np.random.default_rng(2).normal(size=(B, L, cfg.d_model)),
+                    jnp.bfloat16)
+    _, state = ssm_train(p, x, cfg, None, return_state=True)
+    xBC = _conv_scan(jnp.einsum("blm,mc->blc", x, p["w_xbc"]), p["conv_w"],
+                     p["conv_b"], L)
+    dt = jax.nn.softplus(jnp.einsum("blm,mh->blh", x, p["w_dt"]).astype(jnp.float32)
+                         + p["dt_bias"].astype(jnp.float32))
+    A = -jnp.exp(p["A_log"].astype(jnp.float32))
+    parts = (xBC[..., :Din].reshape(B, L, H, P), xBC[..., Din:Din + N],
+             xBC[..., Din + N:], dt, A)
+    tx = [torch.from_numpy(np.array(a, np.float32)) for a in parts]
+    _, h = ssd.ssd_scan_op(*tx, chunk=cfg.ssm_chunk, return_state=True)
+    close(h, state["h"], SSD_TOL)
+
+
+def test_ssd_rejects_a_length_off_the_chunk():
+    x = torch.zeros(1, 48, 1, 8)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ssd.ssd_scan_op(x, torch.zeros(1, 48, 4), torch.zeros(1, 48, 4),
+                        torch.zeros(1, 48, 1), torch.zeros(1), chunk=32)
+
+
+def test_ssd_kernel_vs_plain_on_gpu(cuda):
+    torch.backends.cuda.matmul.allow_tf32 = False     # the plain side in true f32
+    rng = np.random.default_rng(3)
+    for B, L, H, P, N, chunk in SSD_SHAPES + [(1, 96, 2, 24, 12, 48)]:   # + ragged tiles
+        tx = [torch.from_numpy(a).to(cuda) for a in ssd_inputs(rng, B, L, H, P, N)]
+        before = ssd.launches
+        y, h = ssd.ssd_scan_op(*tx, chunk=chunk, return_state=True)
+        torch.cuda.synchronize()
+        assert ssd.launches == before + 1
+        y_plain, h_plain = ssd_chunked(*tx, chunk=chunk)
+        close(y, y_plain, SSD_TOL)
+        close(h, h_plain, SSD_TOL)
+        close(y, ssd_oracle(*tx), SSD_TOL)
+        with pytest.raises(TypeError):
+            ssd.ssd_scan_op(tx[0].double(), *tx[1:], chunk=chunk)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
 """repro_torch.launch.serve end to end on the CPU, and the port's isolation.
 
-The serving entry point runs the reduced qwen1.5-0.5b through the kernels'
-plain versions and must print the reference's serving lines, with a
-page-run coalescing dict equal to the reference planner's on the same
-page table. The port must import neither JAX nor the ``repro`` package.
+The serving entry point runs the reduced qwen1.5-0.5b and mamba2-780m
+through the kernels' plain versions and must print the reference's serving
+lines: for qwen with a page-run coalescing dict equal to the reference
+planner's on the same page table, for mamba2 (no pages) without that line.
+The port must import neither JAX nor the ``repro`` package.
 On a GPU machine without JAX, the card's case runs with
 ``PYTHONPATH=src python -m pytest --noconftest tests/test_torch_serve.py -k gpu``.
 """
@@ -23,11 +24,14 @@ torch.set_num_threads(1)   # small shapes; leave the cores to parallel test work
 
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU_ARGS = ["--reduced", "--device", "cpu", "--batch", "3", "--prompt-len", "20",
             "--gen", "6", "--page-tokens", "4"]
+SSM_ARGS = ["--arch", "mamba2-780m", "--reduced", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "64", "--gen", "6"]
 
 
 def test_serve_prints_the_reference_lines(capsys):
@@ -52,6 +56,31 @@ def test_serve_prints_the_reference_lines(capsys):
     assert torch.isfinite(res.decode_logits.float()).all()
 
 
+def test_serve_ssm_prints_the_reference_lines(capsys):
+    """Reduced mamba2: prefill over two chunks of 32, then 6 greedy steps of
+    the recurrent decode. The SSM has no pages, so, as in the reference
+    (which prints it only under --spill), there is no page-run line."""
+    res = serve.main(SSM_ARGS)
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 4 and out[-1] == "SERVING DONE"
+    assert re.fullmatch(r"prefill 64 tokens × 2 seqs in [0-9.]+s", out[0])
+    assert re.fullmatch(r"decode 6 steps × 2 seqs: [0-9.,]+ tok/s", out[1])
+    ids = ast.literal_eval(out[2].removeprefix("sample continuation token ids: "))
+    assert ids == res.generated[0].tolist()
+    assert res.cache.h.shape == (2, 2, 4, 16, 32)       # (L, B, H, N, P)
+    vocab = res.model.cfg.vocab_size
+    greedy = res.decode_logits[:, :, :vocab].argmax(-1).numpy()
+    np.testing.assert_array_equal(res.generated, greedy)
+    np.testing.assert_array_equal(res.fed[:, 1:].numpy(), greedy[:, :-1])
+    assert torch.isfinite(res.decode_logits.float()).all()
+
+
+def test_serve_ssm_refuses_a_prompt_off_the_chunk(capsys):
+    with pytest.raises(SystemExit):
+        serve.main(SSM_ARGS[:-4] + ["--prompt-len", "40", "--gen", "2"])
+    assert "seq_len must be a multiple of ssm_chunk" in capsys.readouterr().err
+
+
 @pytest.mark.parametrize("flags", [["--spill"], ["--donors", "3"],
                                    ["--clients", "2"], ["--straggler", "1:30"]])
 def test_serve_refuses_the_engine_flags(flags, capsys):
@@ -67,6 +96,16 @@ def test_serve_on_gpu_goes_through_both_kernels():
     res = serve.main(["--reduced", "--batch", "2", "--prompt-len", "16", "--gen", "4"])
     layers = res.model.cfg.num_layers
     assert (fa.launches, pa.launches) == (layers, layers * 4)
+    assert torch.isfinite(res.decode_logits.float()).all()
+
+
+def test_serve_ssm_on_gpu_goes_through_the_scan_kernel():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    fa.launches = pa.launches = ssd.launches = 0
+    res = serve.main(["--arch", "mamba2-780m", "--reduced", "--batch", "2",
+                      "--prompt-len", "64", "--gen", "4"])
+    assert (ssd.launches, fa.launches, pa.launches) == (res.model.cfg.num_layers, 0, 0)
     assert torch.isfinite(res.decode_logits.float()).all()
 
 
