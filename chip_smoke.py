@@ -9,7 +9,8 @@ Phases, each printing one JSON line:
 2. build: compile every ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a, one
    nvcc per source, all started together;
 3. kernels vs plain: each CUDA kernel against its plain PyTorch version on the
-   card, at the reference suite's shapes and at the serving shapes;
+   card, at the reference suite's shapes and at the serving shapes (flash
+   attention also at a causal prompt of 4096 tokens);
 4. serve: ``repro_torch.launch.serve.main`` at full width (qwen1.5-0.5b, batch 4,
    prompt 64, 32 decode steps) with every kernel's launch count reset just
    before and read just after; the decode logits against one forward pass over
@@ -22,7 +23,8 @@ Phases, each printing one JSON line:
    weights, over the served tokens (in bf16 the random full-width model
    amplifies rounding past the bound, the JAX reference as much as the port);
 9. kernels: each kernel's time at the serving shapes (CUDA-graph replay, so no
-   host gaps), its plain version's, the bound of the card, and a library call's.
+   host gaps), its plain version's, the bound of the card, and a library call's;
+   flash attention also at a causal prompt of 4096 tokens.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and the
 script exits non-zero; without a CUDA device it fails before printing anything.
@@ -53,9 +55,12 @@ from repro_torch.kernels.ssd_scan import ops as ssd  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 
-# NVIDIA H100 SXM data sheet, dense rates at the 700 W limit
+# NVIDIA H100 SXM data sheet, dense rates at the 700 W limit. f32-accurate
+# products are not bound by the 67 TFLOP/s of the f32 CUDA cores: split into
+# three TF32 products (3×TF32, what ssd_scan.cu runs) they go through the
+# tensor cores at 495 / 3 = 165 TFLOP/s, so that is the least time for f32 work.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 
 ARCH, BATCH, PROMPT, GEN, PAGE_TOKENS = "qwen1.5-0.5b", 4, 64, 32, 16
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -82,6 +87,9 @@ FLASH_SHAPES = [   # Sq, Skv, H, Kh, D, causal, window (tests/test_kernels.py)
     (64, 192, 2, 2, 32, True, None),
     (64, 64, 2, 1, 128, True, None),
 ]
+# A long causal prompt (B, S, H = Kh, D): at 64 tokens every attention kernel is
+# latency-bound; here the tensor-core products dominate.
+LONG_PROMPT = (1, 4096, 16, 64)
 
 
 def emit(obj: dict) -> None:
@@ -183,10 +191,13 @@ def phase_compare(dev: torch.device) -> dict:
     cfg = get_config(ARCH)
     serving = (BATCH, PROMPT, PROMPT, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                True, None)
+    B, S, H, D = LONG_PROMPT
+    long_prompt = (B, S, S, H, H, D, True, None)
     for dtype in (torch.float32, torch.bfloat16):
         tol = FLASH_TOL[dtype]
-        for B, Sq, Skv, H, Kh, D, causal, window in [(2, *s) for s in FLASH_SHAPES] + [
-                serving]:
+        shapes = [(2, *s) for s in FLASH_SHAPES] + (
+            [long_prompt] if dtype == torch.bfloat16 else []) + [serving]
+        for B, Sq, Skv, H, Kh, D, causal, window in shapes:
             q = torch.randn(B, Sq, H, D, generator=gen, device=dev).to(dtype)
             k = torch.randn(B, Skv, Kh, D, generator=gen, device=dev).to(dtype)
             v = torch.randn(B, Skv, Kh, D, generator=gen, device=dev).to(dtype)
@@ -197,6 +208,9 @@ def phase_compare(dev: torch.device) -> dict:
             report["flash"].append({"shape": [B, Sq, Skv, H, Kh, D], "causal": causal,
                                     "window": window, "dtype": str(dtype),
                                     "max_abs_err": err})
+            if (B, Sq, Skv, H, Kh, D, causal, window) == long_prompt:
+                main_err[("flash_long", dtype)] = err
+            del q, k, v, out
         main_err[("flash", dtype)] = err          # the serving shape comes last
     for dtype in (torch.float32, torch.bfloat16):
         tol = PAGED_TOL[dtype]
@@ -473,7 +487,9 @@ def phase_profile_ssm(model, prompts) -> None:
     cache = model.init_cache(BATCH, SSM_PROMPT + steps)
     out = {}
     rows, wall = profiled(lambda: out.setdefault("logits", model.prefill(prompts, cache)))
-    scan_us = sum(r["device_us"] for r in rows if "ssd_scan" in r["name"])
+    # the ssd_scan source launches two kernels: C·Bᵀ, then the scan
+    scan_us = sum(r["device_us"] for r in rows
+                  if "ssd_scan_kernel" in r["name"] or "ssd_cb_kernel" in r["name"])
     prefill = profile_summary(rows, wall, 1)
     prefill["ssd_scan_device_ms"] = scan_us / 1e3
     prefill["ssd_scan_share_of_device_time"] = scan_us / 1e3 / prefill["device_busy_ms"]
@@ -483,12 +499,10 @@ def phase_profile_ssm(model, prompts) -> None:
           "decode": profile_summary(rows, wall, steps)})
 
 
-def phase_kernels(dev: torch.device, main_err: dict, launches: dict) -> None:
-    cfg = get_config(ARCH)
-    gen = torch.Generator(device=dev).manual_seed(1)
+def flash_row(dev, gen, B: int, S: int, H: int, Kh: int, D: int, launches: int,
+              err: float, case: str) -> dict:
+    """The flash kernel's row of the kernels line: causal bf16 prefill of S tokens."""
     dt = torch.bfloat16
-    H, Kh, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    B, S = BATCH, PROMPT
     q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dt)
     k = torch.randn(B, S, Kh, D, generator=gen, device=dev).to(dt)
     v = torch.randn(B, S, Kh, D, generator=gen, device=dev).to(dt)
@@ -497,19 +511,36 @@ def phase_kernels(dev: torch.device, main_err: dict, launches: dict) -> None:
     flash_bytes = (2 * q.numel() + k.numel() + v.numel()) * elem
     flash_flops = 4 * D * B * H * S * (S + 1) // 2        # causal QK^T and PV
     fb, fby = bound_ms(flash_bytes, flash_flops, dt)
-    flash = {
+    row = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:82",
-        "launches": launches["flash_attention"],
-        "max_abs_err": main_err[("flash", dt)],
+        "launches": launches, "max_abs_err": err,
         "ms": device_ms(lambda: fa.flash_attention_op(q, k, v, causal=True)),
-        "plain_ms": device_ms(lambda: attention_ref(q, k, v, causal=True)),
+        "plain_ms": device_ms(lambda: attention_ref(q, k, v, causal=True),
+                              iters=20 if S <= 1024 else 2),
         "bound_ms": fb, "bound_by": fby,
         "library_ms": device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True)),
-        "shape": {"q": list(q.shape), "kv": list(k.shape), "dtype": "bf16"},
+        "case": case, "shape": {"q": list(q.shape), "kv": list(k.shape), "dtype": "bf16"},
     }
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_kernels(dev: torch.device, main_err: dict, launches: dict) -> None:
+    cfg = get_config(ARCH)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    dt = torch.bfloat16
+    H, Kh, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    elem = torch.finfo(dt).bits // 8
+    flash = flash_row(dev, gen, BATCH, PROMPT, H, Kh, D, launches["flash_attention"],
+                      main_err[("flash", dt)], "serving: qwen1.5-0.5b prefill")
+    B, S, Hl, Dl = LONG_PROMPT
+    # same kernel, off the main path: its launches are the main path's
+    flash_long = flash_row(dev, gen, B, S, Hl, Hl, Dl, launches["flash_attention"],
+                           main_err[("flash_long", dt)], "long prompt, causal")
     pq, pkv, lengths, plan = paged_inputs(dev, gen, dt)
     tokens = int(lengths.sum())
     paged_bytes = (2 * pq.numel() + tokens * 2 * Kh * D) * elem \
@@ -545,7 +576,7 @@ def phase_kernels(dev: torch.device, main_err: dict, launches: dict) -> None:
         "shape": {"x": list(x.shape), "N": N_, "chunk": K_, "dtype": "f32",
                   "h_final": True},
     }
-    emit({"kernels": [flash, paged, scan]})
+    emit({"kernels": [flash, flash_long, paged, scan]})
 
 
 def ssd_work(B: int, L: int, H: int, P: int, N: int, K: int) -> tuple[int, int]:

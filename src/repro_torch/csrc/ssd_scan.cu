@@ -14,94 +14,278 @@
 // the last chunk is written to h_final (B, H, N, P). The TPU kernel keeps
 // it in VMEM scratch and drops it; serving needs it to start decode.
 //
-// Design. The TPU kernel carries h across a sequential grid axis; here one
-// CTA of 256 threads per (h, b) loops over the chunks itself, with h in
-// shared memory. Per chunk: a block-wide prefix sum of dt * A (warp
-// shuffles, then the warp totals), then the chunk's rows in tiles of 32.
-// Each row tile stages its C rows once, adds the inbound-state term from
-// h, and walks the column tiles at or below it, staging B and x, forming
-// the masked 32 x 32 score tile and accumulating scores . x into registers
-// (each thread holds 8 columns of one row). The state update rides the
-// last row tile's walk, which visits every column tile: each thread keeps
-// 32 elements of the new h in registers and commits them to shared memory
-// once the chunk's y is written. Above the diagonal the exponent is
-// positive and exp overflows, so those entries are selected as 0, never
-// multiplied by a mask (inf * 0 = NaN); exp(cs) underflowing to 0 over a
-// long chunk is correct. Rows past K in a ragged tile are staged as 0 and
-// not written, so any K <= 256 with L % K == 0 is taken, and N <= 128,
-// P <= 64.
-//
 // Bound on this card: operations. At the serving shape (B 4, L 512, H 48,
 // P 64, N 128, K 256) the function needs ~4.9 GFLOP, counting the causal
 // half of each K x K product and the head-shared C . B^T once per
-// (b, chunk): ~0.073 ms at 67 TFLOP/s f32, against ~59 MB of inputs and
-// outputs, ~0.018 ms at 3.35 TB/s. What this design does about it:
-// nothing yet. The products run on the f32 CUDA cores from shared memory,
-// and each head recomputes C . B^T. Tensor-core tiles (TF32 or bf16 mma)
-// and a head-shared C . B^T are later work.
+// (b, chunk), against ~59 MB of inputs and outputs. f32-accurate products
+// run on the tensor cores as three TF32 products (below), at 495 / 3 =
+// 165 TFLOP/s: ~0.030 ms, against ~0.018 ms of bytes at 3.35 TB/s.
+//
+// Design: two launches on the caller's stream.
+//
+// 1. ssd_cb_kernel writes the causal half of C . B^T once per (b, chunk)
+//    into a scratch buffer that the wrapper allocates (K x K f32 per
+//    (b, chunk), 2 MB at the serving shape, L2-resident). C . B^T does not
+//    depend on the head, so the 48 heads of a chunk read it instead of
+//    recomputing it. The tile of 16 rows x 8 columns is stored as one
+//    float4 per lane in the mma accumulator layout, which is exactly the
+//    A-fragment layout the scan reads back (see the column order below):
+//    one coalesced 16-byte load per lane per tile.
+// 2. ssd_scan_kernel: one CTA of 8 warps per (head, batch) loops over the
+//    chunks with h_prev (N x P) in shared memory. Per chunk: a block-wide
+//    prefix sum of dt * A, x staged in shared memory with 16-byte cp.async,
+//    then
+//    - y, one 16-row m-tile at a time: C . h_prev (C fragments straight
+//      from device memory, two k steps ahead of the mma), scaled by
+//      exp(cs_i), plus the masked scores (C . B^T tiles from the scratch,
+//      times exp(cs_i - cs_j) * dt_j, selected to 0 above the diagonal,
+//      never multiplied by a mask: inf * 0 = NaN) times x. Warp w owns
+//      m-tiles w and 15 - w, so the causal work is even across warps;
+//    - the state update (B * w)^T . x into registers, warp w owning state
+//      rows 16w..16w+15, initialised with exp(cs_last) * h_prev; it is
+//      committed to shared memory only after a barrier, once every warp has
+//      read h_prev for its inbound term.
+//    The A side of every product (device-memory loads, the TF32 split, the
+//    exp of the mask) is the costly part, so a CTA takes all 64 columns of
+//    P and spends it on 8 n-tiles. Measured on an NVIDIA H100 80GB HBM3
+//    (700 W) at the serving shape: 64 columns a CTA (192 CTAs, one an SM at
+//    ~230 registers) beat 32 (384 CTAs, two an SM at 128 registers) and 16
+//    by 11-18 %, though 192 CTAs fill 132 SMs in 1.45 waves.
+//
+// Every product is mma.sync.m16n8k8 TF32 -> f32 on the tensor cores with
+// each f32 operand split as hi = tf32(a), lo = tf32(a - hi), accumulating
+// lo.hi + hi.lo + hi.hi in f32 (3xTF32): ~2^-22 relative per product, like
+// f32, where one TF32 product (~1e-3) would break the 1e-4 tolerance.
+//
+// Column order inside an 8-wide k step: logical k column t (t = lane % 4)
+// is physical column 2t and logical t + 4 is 2t + 1, so a lane's two A
+// elements of a row are adjacent (one float2 load), and its two B elements
+// are rows 2t and 2t + 1 of the shared tile. Shared rows are 68 floats
+// apart (== 4 mod 16), which makes those B-fragment reads free of bank
+// conflicts.
+//
+// Ragged edges are zero-padded to the mma tile and masked: rows and columns
+// past K, N or P are loaded as 0 and never written, so any K <= 256 with
+// L % K == 0, N <= 128 and P <= 64 is taken.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;                    // scan CTA
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;                        // rows of a row or column tile
+constexpr int kCbThreads = 128;                  // C . B^T CTA: 64 columns
 constexpr int kMaxChunk = 256, kMaxN = 128, kMaxP = 64;
-constexpr int kColLanes = 8;                     // threads sharing one y row
-constexpr int kYCols = kMaxP / kColLanes;        // y columns a thread holds
-constexpr int kScoreCols = kTile / kColLanes;    // score columns a thread forms
-constexpr int kStateRows = kThreads / kMaxP;     // h rows covered per pass
-constexpr int kHRegs = kMaxN / kStateRows;       // h elements a thread holds
+constexpr int kPSlice = 64;                      // y and h columns a scan CTA owns
+constexpr int kNT = kPSlice / 8;                 // its n-tiles of 8 columns
+constexpr int kStride = kPSlice + 4;             // x_s, h_s row stride in floats
 
 static_assert(kMaxChunk <= kThreads, "the prefix sum gives one token per thread");
+static_assert(kMaxChunk <= 2 * kWarps * 16, "two m-tiles a warp cover the chunk");
+static_assert(kMaxN <= kWarps * 16, "one state m-tile a warp covers N");
 
-__host__ __device__ constexpr int smem_floats(int K, int N, int P) {
-  return N * P                    // h_s: the carried state
-         + 2 * kTile * (N + 1)    // c_s, b_s: C row tile, B column tile
-         + kTile * P              // x_s: x column tile
-         + kTile * (kTile + 1)    // s_s: masked scores
-         + 3 * K                  // dt_s, cs_s, w_s
-         + kWarps;                // warp totals of the prefix sum
+__host__ __device__ constexpr int round16(int v) { return (v + 15) & ~15; }
+
+__host__ __device__ constexpr int smem_floats(int K, int N) {
+  return round16(K) * kStride      // x_s: the chunk's x columns of this slice
+         + round16(N) * kStride    // h_s: the carried state
+         + 3 * round16(K)          // cs_s, dt_s, w_s
+         + kWarps;                 // warp totals of the prefix sum
+}
+
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+// f32 rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero, as cvt.rna.tf32.f32 rounds: two integer ops at the full ALU rate,
+// where the conversion instruction issues at a fraction of it
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(v);
+  lo = to_tf32(v - __uint_as_float(hi));
+}
+
+// a0 (row g, k t), a1 (row g + 8, k t), a2 (row g, k t + 4), a3 (row g + 8, k t + 4)
+__device__ __forceinline__ FragA split_a(float a0, float a1, float a2, float a3) {
+  FragA f;
+  split(a0, f.hi[0], f.lo[0]);
+  split(a1, f.hi[1], f.lo[1]);
+  split(a2, f.hi[2], f.lo[2]);
+  split(a3, f.hi[3], f.lo[3]);
+  return f;
+}
+
+// b0 (k t, column g), b1 (k t + 4, column g)
+__device__ __forceinline__ FragB split_b(float b0, float b1) {
+  FragB f;
+  split(b0, f.hi[0], f.lo[0]);
+  split(b1, f.hi[1], f.lo[1]);
+  return f;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d[nt] += a . b_nt over the slice's n-tiles of 8 columns, B fragments read
+// from a shared tile at `bp` (rows bp and bp + stride, n-tile nt at column
+// 8 nt); the three terms go out term by term, so consecutive mma are
+// independent
+__device__ __forceinline__ void mma3_row(float (&d)[kNT][4], const FragA& a, const float* bp,
+                                         int stride) {
+  FragB b[kNT];
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) b[nt] = split_b(bp[nt * 8], bp[stride + nt * 8]);
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) mma_tf32(d[nt], a.lo, b[nt].hi);
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) mma_tf32(d[nt], a.hi, b[nt].lo);
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) mma_tf32(d[nt], a.hi, b[nt].hi);
+}
+
+// row[n], row[n + 1], zero at or past `limit` (0 for a padding row); `vec`
+// when the row start is 8-byte aligned, so the pair is one load
+__device__ __forceinline__ float2 ld_pair(const float* row, int n, int limit, bool vec) {
+  if (vec && n + 1 < limit) return __ldg(reinterpret_cast<const float2*>(row + n));
+  return make_float2(n < limit ? __ldg(row + n) : 0.f,
+                     n + 1 < limit ? __ldg(row + n + 1) : 0.f);
+}
+
+// B[j][na], B[j][nb], B[j + 1][na], B[j + 1][nb] of a chunk's rows `Bc`,
+// zero past K rows and N columns: the state update's raw A fragment
+__device__ __forceinline__ float4 ld_bt(const float* Bc, int j, int K, int N, int na, int nb) {
+  const float* r0 = Bc + (long)j * N;
+  const bool j0 = j < K, j1 = j + 1 < K, a = na < N, b = nb < N;
+  return make_float4(j0 && a ? __ldg(r0 + na) : 0.f, j0 && b ? __ldg(r0 + nb) : 0.f,
+                     j1 && a ? __ldg(r0 + N + na) : 0.f, j1 && b ? __ldg(r0 + N + nb) : 0.f);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+// C . B^T for one (b, chunk) and one 16-row m-tile, 64 columns a CTA: warp w
+// owns the two 8-column tiles at columns 64 * blockIdx.y + 16 w, skipped when
+// they lie above the diagonal. Each tile is stored as 32 lanes x float4
+// (c0, c1, c2, c3) of the accumulator: (g, 2t), (g, 2t + 1), (g + 8, 2t),
+// (g + 8, 2t + 1). Small warps, many of them, and operands two k steps ahead:
+// the kernel is latency-bound, not mma-bound.
+__global__ void __launch_bounds__(kCbThreads)
+ssd_cb_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm,
+              float4* __restrict__ cb, int L, int N, int K, int n_chunks) {
+  const int mi = blockIdx.x, bc = blockIdx.z;    // bc = b * n_chunks + chunk
+  const int nM = gridDim.x, nK8 = 2 * nM;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int kt0 = blockIdx.y * 8 + warp * 2;     // the warp's first column tile
+  if (kt0 > 2 * mi + 1) return;                  // both tiles above the diagonal
+  const long row0 = (long)(bc / n_chunks) * L + (long)(bc % n_chunks) * K;
+  const bool vec = N % 2 == 0;
+  const int i = mi * 16 + g, j = kt0 * 8 + g;
+  const float* c_a = Cm + (row0 + i) * N;        // A rows i, i + 8
+  const float* b_a = Bm + (row0 + j) * N;        // B rows j (tile kt0), j + 8 (kt0 + 1)
+  const int lc_a = i < K ? N : 0, lc_b = i + 8 < K ? N : 0;
+  const int lb_a = j < K ? N : 0, lb_b = j + 8 < K ? N : 0;
+
+  float acc[2][4] = {};
+  float2 op[2][4];                               // operands of the next two k steps
+#pragma unroll
+  for (int st = 0; st < 2; ++st) {
+    const int n = st * 8 + 2 * t;
+    op[st][0] = ld_pair(c_a, n, lc_a, vec);
+    op[st][1] = ld_pair(c_a + 8L * N, n, lc_b, vec);
+    op[st][2] = ld_pair(b_a, n, lb_a, vec);
+    op[st][3] = ld_pair(b_a + 8L * N, n, lb_b, vec);
+  }
+  for (int n0 = 0; n0 < N; n0 += 8) {
+    const float2 u = op[0][0], v = op[0][1], w0 = op[0][2], w1 = op[0][3];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) op[0][e] = op[1][e];
+    const int n = n0 + 16 + 2 * t;
+    op[1][0] = ld_pair(c_a, n, lc_a, vec);
+    op[1][1] = ld_pair(c_a + 8L * N, n, lc_b, vec);
+    op[1][2] = ld_pair(b_a, n, lb_a, vec);
+    op[1][3] = ld_pair(b_a + 8L * N, n, lb_b, vec);
+    const FragA a = split_a(u.x, v.x, u.y, v.y);
+    const FragB b0 = split_b(w0.x, w0.y), b1 = split_b(w1.x, w1.y);
+    mma_tf32(acc[0], a.lo, b0.hi);
+    mma_tf32(acc[1], a.lo, b1.hi);
+    mma_tf32(acc[0], a.hi, b0.lo);
+    mma_tf32(acc[1], a.hi, b1.lo);
+    mma_tf32(acc[0], a.hi, b0.hi);
+    mma_tf32(acc[1], a.hi, b1.hi);
+  }
+  float4* dst = cb + ((long)bc * nM + mi) * nK8 * 32 + lane;
+  dst[kt0 * 32] = make_float4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
+  dst[(kt0 + 1) * 32] = make_float4(acc[1][0], acc[1][1], acc[1][2], acc[1][3]);
 }
 
 __global__ void __launch_bounds__(kThreads)
 ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ Bm,
                 const float* __restrict__ Cm, const float* __restrict__ dt,
-                const float* __restrict__ A, float* __restrict__ y,
-                float* __restrict__ h_final, int L, int H, int P, int N, int K) {
-  extern __shared__ float smem[];
-  float* h_s = smem;                             // N x P
-  float* c_s = h_s + N * P;                      // kTile x (N + 1)
-  float* b_s = c_s + kTile * (N + 1);            // kTile x (N + 1)
-  float* x_s = b_s + kTile * (N + 1);            // kTile x P
-  float* s_s = x_s + kTile * P;                  // kTile x (kTile + 1)
-  float* dt_s = s_s + kTile * (kTile + 1);       // K
-  float* cs_s = dt_s + K;                        // K
-  float* w_s = cs_s + K;                         // K: dt_j * exp(cs_last - cs_j)
-  float* warp_s = w_s + K;                       // kWarps
+                const float* __restrict__ A, const float4* __restrict__ cb,
+                float* __restrict__ y, float* __restrict__ h_final, int L, int H, int P,
+                int N, int K) {
+  extern __shared__ float4 smem4[];
+  const int K16 = round16(K), N16 = round16(N), nM = K16 / 16, nK8 = 2 * nM;
+  float* x_s = reinterpret_cast<float*>(smem4);  // K16 x kStride
+  float* h_s = x_s + K16 * kStride;              // N16 x kStride
+  float* cs_s = h_s + N16 * kStride;             // K16, zero past K
+  float* dt_s = cs_s + K16;                      // K16, zero past K
+  float* w_s = dt_s + K16;                       // K16: dt_j * exp(cs_last - cs_j)
+  float* warp_s = w_s + K16;                     // kWarps
 
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int p_base = blockIdx.x * kPSlice, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int pw = min(kPSlice, P - p_base);       // columns of this slice that exist
   const float a = A[h];
-  const long tok_stride = (long)H * P;           // between tokens in x and y
-  const float* xb = x + (long)b * L * tok_stride + (long)h * P;
-  float* yb = y + (long)b * L * tok_stride + (long)h * P;
+  const long tok = (long)H * P;                  // between tokens in x and y
+  const float* xb = x + (long)b * L * tok + (long)h * P + p_base;
+  float* yb = y + (long)b * L * tok + (long)h * P + p_base;
   const float* Bb = Bm + (long)b * L * N;
   const float* Cb = Cm + (long)b * L * N;
   const float* dtb = dt + (long)b * L * H + h;
+  const bool vec_n = N % 2 == 0, vec_p = P % 2 == 0, x16 = P % 4 == 0;
+  const int n_chunks = L / K;
 
-  // y and score roles: row r of a tile, column lane q
-  const int r = tid / kColLanes, q = tid % kColLanes;
-  // state role: column sp, rows sn0 + kStateRows * m
-  const int sp = tid % kMaxP, sn0 = tid / kMaxP;
-  const bool owns_state = sp < P;
+  for (int e = tid; e < N16 * kStride; e += kThreads) h_s[e] = 0.f;
 
-  for (int e = tid; e < N * P; e += kThreads) h_s[e] = 0.f;
-  float hreg[kHRegs];
-  const int n_tiles = (K + kTile - 1) / kTile;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int c0 = c * K;
+    // --- x of the chunk, zero past K rows and past P columns
+    const float* xc = xb + (long)c0 * tok;
+    if (x16) {
+      for (int e = tid; e < K16 * (kPSlice / 4); e += kThreads) {
+        const int j = e / (kPSlice / 4), q = e % (kPSlice / 4) * 4;
+        const bool ok = j < K && q < pw;
+        cp_async16(x_s + j * kStride + q, ok ? xc + j * tok + q : xb, ok);
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+    } else {
+      for (int e = tid; e < K16 * kPSlice; e += kThreads) {
+        const int j = e / kPSlice, q = e % kPSlice;
+        x_s[j * kStride + q] = j < K && q < pw ? __ldg(xc + j * tok + q) : 0.f;
+      }
+    }
 
-  for (int c0 = 0; c0 < L; c0 += K) {
     // --- cs = cumsum(dt * A) over the chunk: warp scans, then warp totals
     float d = 0.f, v = 0.f;
     if (tid < K) {
@@ -110,168 +294,188 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ Bm,
     }
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
-      const float t = __shfl_up_sync(0xffffffffu, v, o);
-      if (lane >= o) v += t;
+      const float u = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += u;
     }
     if (lane == 31) warp_s[warp] = v;
     __syncthreads();
     if (warp == 0) {
-      float t = lane < kWarps ? warp_s[lane] : 0.f;
+      float u = lane < kWarps ? warp_s[lane] : 0.f;
 #pragma unroll
       for (int o = 1; o < kWarps; o <<= 1) {
-        const float u = __shfl_up_sync(0xffffffffu, t, o);
-        if (lane >= o) t += u;
+        const float s = __shfl_up_sync(0xffffffffu, u, o);
+        if (lane >= o) u += s;
       }
-      if (lane < kWarps) warp_s[lane] = t;
+      if (lane < kWarps) warp_s[lane] = u;
     }
     __syncthreads();
     if (warp > 0) v += warp_s[warp - 1];
-    if (tid < K) {
-      dt_s[tid] = d;
-      cs_s[tid] = v;
+    if (tid < K16) {
+      dt_s[tid] = tid < K ? d : 0.f;
+      cs_s[tid] = tid < K ? v : 0.f;
     }
     __syncthreads();
     const float cs_last = cs_s[K - 1];
-    if (tid < K) w_s[tid] = d * expf(cs_last - v);
-    // the carried state, decayed over the whole chunk; the chunk's own
-    // contributions are added during the last row tile's column walk
-    const float decay_all = expf(cs_last);
-#pragma unroll
-    for (int m = 0; m < kHRegs; ++m) {
-      const int n = sn0 + kStateRows * m;
-      hreg[m] = owns_state && n < N ? h_s[n * P + sp] * decay_all : 0.f;
-    }
+    if (tid < K16) w_s[tid] = tid < K ? d * expf(cs_last - v) : 0.f;
+    asm volatile("cp.async.wait_all;\n" ::);
+    __syncthreads();                             // x_s, cs_s, dt_s, w_s ready
 
-    for (int it = 0; it < n_tiles; ++it) {
-      const int i0 = it * kTile, gi = i0 + r;
-      for (int idx = tid; idx < kTile * N; idx += kThreads) {
-        const int i = idx / N, n = idx % N;
-        c_s[i * (N + 1) + n] = i0 + i < K ? Cb[(long)(c0 + i0 + i) * N + n] : 0.f;
+    // --- y, one m-tile at a time; warp w owns m-tiles w and 15 - w
+    const float4* cbc = cb + ((long)b * n_chunks + c) * nM * nK8 * 32 + lane;
+    for (int r = 0; r < 2; ++r) {
+      const int mi = r == 0 ? warp : 2 * kWarps - 1 - warp;
+      if (mi >= nM) continue;
+      const int ia = mi * 16 + g, ib = ia + 8;
+      float acc[kNT][4];
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+
+      // inbound state: C_i . h_prev
+      const float* c_a = Cb + (long)(c0 + ia) * N;
+      const float* c_b = c_a + 8L * N;
+      const int lim_a = ia < K ? N : 0, lim_b = ib < K ? N : 0;
+      // device-memory fragments run two k steps ahead of the mma
+      float2 u0 = ld_pair(c_a, 2 * t, lim_a, vec_n), w0 = ld_pair(c_b, 2 * t, lim_b, vec_n);
+      float2 u1 = ld_pair(c_a, 8 + 2 * t, lim_a, vec_n);
+      float2 w1 = ld_pair(c_b, 8 + 2 * t, lim_b, vec_n);
+      for (int n0 = 0; n0 < N; n0 += 8) {
+        const int n = n0 + 2 * t;
+        const float2 u = u0, w = w0;
+        u0 = u1;
+        w0 = w1;
+        u1 = ld_pair(c_a, n + 16, lim_a, vec_n);
+        w1 = ld_pair(c_b, n + 16, lim_b, vec_n);
+        const FragA fa = split_a(u.x, w.x, u.y, w.y);
+        mma3_row(acc, fa, h_s + n * kStride + g, kStride);
       }
-      __syncthreads();   // c_s staged; w_s written (first tile)
-
-      // inbound state: exp(cs_i) * (C_i . h_prev)
-      float acc[kYCols];
+      const float cs_a = cs_s[ia], cs_b = cs_s[ib];
+      const float dec_a = ia < K ? expf(cs_a) : 0.f, dec_b = ib < K ? expf(cs_b) : 0.f;
 #pragma unroll
-      for (int e = 0; e < kYCols; ++e) acc[e] = 0.f;
-      for (int n = 0; n < N; ++n) {
-        const float cv = c_s[r * (N + 1) + n];
-#pragma unroll
-        for (int e = 0; e < kYCols; ++e) {
-          const int p = q + kColLanes * e;
-          if (p < P) acc[e] += cv * h_s[n * P + p];
-        }
+      for (int nt = 0; nt < kNT; ++nt) {
+        acc[nt][0] *= dec_a;
+        acc[nt][1] *= dec_a;
+        acc[nt][2] *= dec_b;
+        acc[nt][3] *= dec_b;
       }
-      const float cs_i = gi < K ? cs_s[gi] : 0.f;
-      const float decay_in = gi < K ? expf(cs_i) : 0.f;
-#pragma unroll
-      for (int e = 0; e < kYCols; ++e) acc[e] *= decay_in;
 
-      // intra-chunk: column tiles at or below the row tile
-      for (int jt = 0; jt <= it; ++jt) {
-        const int j0 = jt * kTile, jn = min(kTile, K - j0);
-        for (int idx = tid; idx < kTile * N; idx += kThreads) {
-          const int j = idx / N, n = idx % N;
-          b_s[j * (N + 1) + n] = j < jn ? Bb[(long)(c0 + j0 + j) * N + n] : 0.f;
-        }
-        for (int idx = tid; idx < kTile * P; idx += kThreads) {
-          const int j = idx / P, p = idx % P;
-          x_s[idx] = j < jn ? xb[(long)(c0 + j0 + j) * tok_stride + p] : 0.f;
-        }
-        __syncthreads();
+      // intra-chunk: the masked scores times x, column tiles at or below the diagonal
+      const float4* src = cbc + (long)mi * nK8 * 32;
+      const int last = 2 * mi + 1;               // >= 1: two tiles in flight
+      float4 s0 = __ldg(src), s1 = __ldg(src + 32);
+      for (int kt = 0; kt <= last; ++kt) {
+        const float4 cur = s0;
+        s0 = s1;
+        if (kt + 2 <= last) s1 = __ldg(src + (kt + 2) * 32);
+        const int j = kt * 8 + 2 * t;
+        const float2 csj = *reinterpret_cast<const float2*>(cs_s + j);
+        const float2 dtj = *reinterpret_cast<const float2*>(dt_s + j);
+        // select, never multiply by a mask: exp above the diagonal is inf
+        const FragA fa = split_a(
+            j <= ia ? cur.x * expf(cs_a - csj.x) * dtj.x : 0.f,
+            j <= ib ? cur.z * expf(cs_b - csj.x) * dtj.x : 0.f,
+            j + 1 <= ia ? cur.y * expf(cs_a - csj.y) * dtj.y : 0.f,
+            j + 1 <= ib ? cur.w * expf(cs_b - csj.y) * dtj.y : 0.f);
+        mma3_row(acc, fa, x_s + j * kStride + g, kStride);
+      }
 
-        float s[kScoreCols];
 #pragma unroll
-        for (int k = 0; k < kScoreCols; ++k) s[k] = 0.f;
-        for (int n = 0; n < N; ++n) {
-          const float cv = c_s[r * (N + 1) + n];
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int col = nt * 8 + 2 * t;
 #pragma unroll
-          for (int k = 0; k < kScoreCols; ++k)
-            s[k] += cv * b_s[(q + kColLanes * k) * (N + 1) + n];
-        }
-#pragma unroll
-        for (int k = 0; k < kScoreCols; ++k) {
-          const int j = q + kColLanes * k, gj = j0 + j;
-          // select, never multiply by a mask: exp above the diagonal is inf
-          s_s[r * (kTile + 1) + j] =
-              (gi < K && gj <= gi) ? s[k] * expf(cs_i - cs_s[gj]) * dt_s[gj] : 0.f;
-        }
-        __syncthreads();
-
-        for (int j = 0; j < jn; ++j) {
-          const float sv = s_s[r * (kTile + 1) + j];
-#pragma unroll
-          for (int e = 0; e < kYCols; ++e) {
-            const int p = q + kColLanes * e;
-            if (p < P) acc[e] += sv * x_s[j * P + p];
+        for (int half = 0; half < 2; ++half) {
+          const int i = half ? ib : ia;
+          if (i >= K) continue;
+          float* dst = yb + (long)(c0 + i) * tok + col;
+          const float v0 = acc[nt][2 * half], v1 = acc[nt][2 * half + 1];
+          if (vec_p && col + 1 < pw) {
+            *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+          } else {
+            if (col < pw) dst[0] = v0;
+            if (col + 1 < pw) dst[1] = v1;
           }
         }
-        if (it == n_tiles - 1 && owns_state) {
-          // state update: h += (B_j * w_j)^T . x_j over this column tile
-          for (int j = 0; j < jn; ++j) {
-            const float coef = w_s[j0 + j] * x_s[j * P + sp];
-#pragma unroll
-            for (int m = 0; m < kHRegs; ++m) {
-              const int n = sn0 + kStateRows * m;
-              if (n < N) hreg[m] += b_s[j * (N + 1) + n] * coef;
-            }
-          }
-        }
-        __syncthreads();   // b_s, x_s, s_s free for the next column tile
-      }
-
-      if (gi < K) {
-        float* dst = yb + (long)(c0 + gi) * tok_stride;
-#pragma unroll
-        for (int e = 0; e < kYCols; ++e) {
-          const int p = q + kColLanes * e;
-          if (p < P) dst[p] = acc[e];
-        }
       }
     }
 
-    // every row tile has read h_prev (the last column walk ended in a
-    // barrier): commit the new state
-    if (owns_state) {
+    // --- state update: warp w owns state rows 16w..16w+15
+    const int na = warp * 16 + g, nb = na + 8;
+    const bool owns = warp * 16 < N;
+    float hacc[kNT][4];
+    if (owns) {
+      const float dec = expf(cs_last);
 #pragma unroll
-      for (int m = 0; m < kHRegs; ++m) {
-        const int n = sn0 + kStateRows * m;
-        if (n < N) h_s[n * P + sp] = hreg[m];
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int col = nt * 8 + 2 * t;
+        hacc[nt][0] = h_s[na * kStride + col] * dec;
+        hacc[nt][1] = h_s[na * kStride + col + 1] * dec;
+        hacc[nt][2] = h_s[nb * kStride + col] * dec;
+        hacc[nt][3] = h_s[nb * kStride + col + 1] * dec;
+      }
+      const float* Bc = Bb + (long)c0 * N;
+      float4 r0 = ld_bt(Bc, 2 * t, K, N, na, nb), r1 = ld_bt(Bc, 8 + 2 * t, K, N, na, nb);
+      for (int kt = 0; kt < nK8; ++kt) {
+        const int j = kt * 8 + 2 * t;
+        const float4 r = r0;
+        r0 = r1;
+        r1 = ld_bt(Bc, j + 16, K, N, na, nb);
+        // A[n][j] = B[j][n] * w_j; a0 (na, j), a1 (nb, j), a2 (na, j + 1), a3 (nb, j + 1)
+        const float2 wj = *reinterpret_cast<const float2*>(w_s + j);
+        const FragA fa = split_a(r.x * wj.x, r.y * wj.x, r.z * wj.y, r.w * wj.y);
+        mma3_row(hacc, fa, x_s + j * kStride + g, kStride);
       }
     }
-    __syncthreads();
+    __syncthreads();                             // every warp has read h_prev
+    if (owns) {
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int col = nt * 8 + 2 * t;
+        h_s[na * kStride + col] = hacc[nt][0];
+        h_s[na * kStride + col + 1] = hacc[nt][1];
+        h_s[nb * kStride + col] = hacc[nt][2];
+        h_s[nb * kStride + col + 1] = hacc[nt][3];
+      }
+    }
+    __syncthreads();                             // h_s committed; x_s, cs_s free
   }
 
-  if (h_final != nullptr && owns_state) {
-    float* dst = h_final + ((long)b * H + h) * N * P;
-#pragma unroll
-    for (int m = 0; m < kHRegs; ++m) {
-      const int n = sn0 + kStateRows * m;
-      if (n < N) dst[n * P + sp] = hreg[m];
+  if (h_final != nullptr) {
+    float* dst = h_final + ((long)b * H + h) * N * P + p_base;
+    for (int e = tid; e < N * kPSlice; e += kThreads) {
+      const int n = e / kPSlice, q = e % kPSlice;
+      if (q < pw) dst[(long)n * P + q] = h_s[n * kStride + q];
     }
   }
 }
 
 }  // namespace
 
-// h_final may be null (then only y is written). Returns cudaGetLastError()
-// after the launch (0 = launched).
+// h_final may be null (then only y is written). cb_scratch holds
+// B * (L / chunk) * round16(chunk)^2 floats of C . B^T tiles. Returns cudaGetLastError() after the
+// launches (0 = launched).
 extern "C" int ssd_scan_fwd(const void* x, const void* Bm, const void* Cm,
                             const void* dt, const void* A, void* y, void* h_final,
-                            int B, int L, int H, int P, int N, int chunk,
-                            void* stream) {
-  if (B <= 0 || B > 65535 || H <= 0 || L <= 0 || chunk <= 0 || chunk > kMaxChunk ||
-      L % chunk != 0 || N <= 0 || N > kMaxN || P <= 0 || P > kMaxP)
+                            void* cb_scratch, int B, int L, int H, int P, int N,
+                            int chunk, void* stream) {
+  if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || L <= 0 || chunk <= 0 ||
+      chunk > kMaxChunk || L % chunk != 0 || (long)B * (L / chunk) > 65535 || N <= 0 || N > kMaxN ||
+      P <= 0 || P > kMaxP || cb_scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   static const cudaError_t attr = cudaFuncSetAttribute(
       ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_floats(kMaxChunk, kMaxN, kMaxP) * static_cast<int>(sizeof(float)));
+      smem_floats(kMaxChunk, kMaxN) * static_cast<int>(sizeof(float)));
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const int smem = smem_floats(chunk, N, P) * static_cast<int>(sizeof(float));
-  ssd_scan_kernel<<<dim3(H, B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nM = round16(chunk) / 16, n_chunks = L / chunk;
+  ssd_cb_kernel<<<dim3(nM, (nM + 3) / 4, B * n_chunks), kCbThreads, 0, s>>>(
+      static_cast<const float*>(Bm), static_cast<const float*>(Cm),
+      static_cast<float4*>(cb_scratch), L, N, chunk, n_chunks);
+  const cudaError_t first = cudaGetLastError();
+  if (first != cudaSuccess) return static_cast<int>(first);
+  const int smem = smem_floats(chunk, N) * static_cast<int>(sizeof(float));
+  ssd_scan_kernel<<<dim3((P + kPSlice - 1) / kPSlice, H, B), kThreads, smem, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(Bm),
       static_cast<const float*>(Cm), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<float*>(y),
-      static_cast<float*>(h_final), L, H, P, N, chunk);
+      static_cast<const float*>(A), static_cast<const float4*>(cb_scratch),
+      static_cast<float*>(y), static_cast<float*>(h_final), L, H, P, N, chunk);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,9 @@
 """Wrapper for the SSD chunk-scan kernel.
 
 ``ssd_scan_op`` launches ``csrc/ssd_scan.cu`` on CUDA tensors and adds one
-to ``launches``; on CPU tensors it runs the kernel's plain version,
+to ``launches`` per call (the source runs two kernels a call: C·Bᵀ once per
+(batch, chunk) into a scratch buffer allocated here, then the scan, which
+reads it for every head); on CPU tensors it runs the kernel's plain version,
 ``ssd_chunked``. With ``return_state`` it also returns the state after the
 last chunk, (B, H, N, P) f32, which serving needs to start decode.
 """
@@ -57,10 +59,12 @@ def _launch(x, Bm, Cm, dt, A, chunk: int, return_state: bool):
     y = torch.empty_like(x)
     h = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device) \
         if return_state else None
+    k16 = -(-chunk // 16) * 16                     # chunk rounded up to the mma tile
+    cb = torch.empty(B * (L // chunk) * k16 * k16, dtype=torch.float32, device=x.device)
     rc = _lib().ssd_scan_fwd(
         x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(), A.data_ptr(),
-        y.data_ptr(), None if h is None else h.data_ptr(), B, L, H, P, N, chunk,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        y.data_ptr(), None if h is None else h.data_ptr(), cb.data_ptr(),
+        B, L, H, P, N, chunk, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "ssd_scan_fwd")
     launches += 1
     return y, h
@@ -69,7 +73,7 @@ def _launch(x, Bm, Cm, dt, A, chunk: int, return_state: bool):
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ssd_scan")
-    lib.ssd_scan_fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+    lib.ssd_scan_fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     lib.ssd_scan_fwd.restype = ctypes.c_int
     return lib

@@ -1,0 +1,150 @@
+"""Time variants of the port's CUDA kernels, to see where their time goes.
+
+Each variant is a kernel source with a few lines replaced: a product loop
+cut out, the exp removed, another slice width. Every variant is compiled
+with the port's nvcc flags into ``build/kernel_variants/``, one ``nvcc``
+each, all started together, and timed through its C entry point at a
+serving shape like ``chip_smoke.py``'s ``kernels`` line (median of CUDA-graph
+replays). A variant that cuts work computes a wrong result: only its time
+means anything. Needs an NVIDIA GPU and nvcc; prints one JSON line per
+variant, then the card's name and power limit::
+
+    python tools/kernel_variants.py            # build and time every variant
+    python tools/kernel_variants.py --check    # only apply the edits (no GPU)
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.kernels import _build  # noqa: E402
+
+OUT = ROOT / "build" / "kernel_variants"
+
+# (old, new) edits of csrc/ssd_scan.cu; timed at mamba2-780m's prefill shape
+SSD = {
+    "shipped": [],
+    "no_intra": [("for (int kt = 0; kt <= last; ++kt) {", "for (int kt = 0; kt < 0; ++kt) {")],
+    "no_inbound": [("      for (int n0 = 0; n0 < N; n0 += 8) {",
+                    "      for (int n0 = 0; n0 < 0; n0 += 8) {")],
+    "no_state": [("for (int kt = 0; kt < nK8; ++kt) {", "for (int kt = 0; kt < 0; ++kt) {")],
+    "one_tf32": [("for (int nt = 0; nt < kNT; ++nt) mma_tf32(d[nt], a.lo, b[nt].hi);", ""),
+                 ("for (int nt = 0; nt < kNT; ++nt) mma_tf32(d[nt], a.hi, b[nt].lo);", "")],
+    "no_exp": [("* expf(cs_", "* (cs_")],
+    "cb_only": [("  extern __shared__ float4 smem4[];",
+                 "  if (L > 0) return;\n  extern __shared__ float4 smem4[];")],
+    "p_slice_32": [("constexpr int kPSlice = 64;", "constexpr int kPSlice = 32;"),
+                   ("__launch_bounds__(kThreads)\nssd_scan_kernel",
+                    "__launch_bounds__(kThreads, 2)\nssd_scan_kernel")],
+    "p_slice_16": [("constexpr int kPSlice = 64;", "constexpr int kPSlice = 16;"),
+                   ("__launch_bounds__(kThreads)\nssd_scan_kernel",
+                    "__launch_bounds__(kThreads, 2)\nssd_scan_kernel")],
+}
+# (old, new) edits of csrc/flash_attention.cu; timed at a causal 4096-token prompt
+FLASH = {
+    "shipped": [],
+    "no_exp": [("fast_exp2(s[n][2 * rr] - mn)", "(s[n][2 * rr] - mn)"),
+               ("fast_exp2(s[n][2 * rr + 1] - mn)", "(s[n][2 * rr + 1] - mn)")],
+    "no_pv": [("          mma_bf16(o[2 * dp], pa, r[0], r[1]);\n"
+               "          mma_bf16(o[2 * dp + 1], pa, r[2], r[3]);\n", "")],
+    "no_s": [("          mma_bf16(s[2 * np], qf[kk], r[0], r[1]);\n"
+              "          mma_bf16(s[2 * np + 1], qf[kk], r[2], r[3]);\n", "")],
+    "exp2f": [('asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));', "y = exp2f(x);")],
+}
+
+
+def write_variants(kind: str, variants: dict) -> dict:
+    """Apply each variant's edits to csrc/<kind>.cu; returns name → source path."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for name, edits in variants.items():
+        src = (_build.CSRC / f"{kind}.cu").read_text()
+        for old, new in edits:
+            if old not in src:
+                raise SystemExit(f"{kind} variant {name}: edit target not found: {old!r}")
+            src = src.replace(old, new)
+        paths[name] = OUT / f"{kind}_{name}.cu"
+        paths[name].write_text(src)
+    return paths
+
+
+def build(paths: dict) -> dict:
+    """nvcc each source in parallel; returns name → (library, ptxas lines)."""
+    procs = {name: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(cu.with_suffix(".so")), str(cu)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, cu in paths.items()}
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise SystemExit(f"variant {name} failed to build:\n{log[-3000:]}")
+        libs[name] = (paths[name].with_suffix(".so"),
+                      [ln.split(":", 1)[1].strip() for ln in log.splitlines() if "Used" in ln])
+    return libs
+
+
+def main() -> None:
+    ssd_src, flash_src = write_variants("ssd_scan", SSD), write_variants("flash_attention", FLASH)
+    if "--check" in sys.argv:
+        print(json.dumps({"variants": sorted(ssd_src) + sorted(flash_src)}))
+        return
+    import torch
+
+    import chip_smoke as cs
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_variants: torch sees no CUDA device")
+    ssd_libs, flash_libs = build(ssd_src), build(flash_src)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    B, L, H, P, N, K = cs.ssd_serving_shape()
+    x, Bm, Cm, dt, A = cs.ssd_inputs(dev, gen, B, L, H, P, N, model_like=True)
+    y, h = torch.empty_like(x), torch.empty(B, H, N, P, device=dev)
+    k16 = -(-K // 16) * 16
+    scratch = torch.empty(B * (L // K) * k16 * k16, device=dev)
+    for name, (so, used) in ssd_libs.items():
+        fn = ctypes.CDLL(str(so)).ssd_scan_fwd
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+        def call():
+            _build.check(fn(x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(),
+                            A.data_ptr(), y.data_ptr(), h.data_ptr(), scratch.data_ptr(),
+                            B, L, H, P, N, K, stream()), name)
+        print(json.dumps({"kernel": "ssd_scan", "variant": name, "ms": cs.device_ms(call),
+                          "ptxas": used}), flush=True)
+
+    Bf, S, Hf, D = cs.LONG_PROMPT
+    q, k, v = (torch.randn(Bf, S, Hf, D, generator=gen, device=dev).bfloat16()
+               for _ in range(3))
+    o = torch.empty_like(q)
+    for name, (so, used) in flash_libs.items():
+        fn = ctypes.CDLL(str(so)).flash_attention_fwd
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+        def call():
+            _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                            Bf, S, S, Hf, Hf, D, 1, 0, 1, stream()), name)
+        print(json.dumps({"kernel": "flash_attention", "variant": name,
+                          "ms": cs.device_ms(call), "ptxas": used}), flush=True)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    print(json.dumps({"kernel": "scaled_dot_product_attention", "ms": cs.device_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True))}))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip())
+
+
+if __name__ == "__main__":
+    main()
