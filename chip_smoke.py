@@ -10,7 +10,8 @@ Phases, each printing one JSON line:
    nvcc per source, all started together;
 3. kernels vs plain: each CUDA kernel against its plain PyTorch version on the
    card, at the reference suite's shapes and at the serving shapes (flash
-   attention also at a causal prompt of 4096 tokens);
+   attention also at a causal prompt of 4096 tokens; paged attention also at
+   its edge cases and at 8192 tokens of context);
 4. serve: ``repro_torch.launch.serve.main`` at full width (qwen1.5-0.5b, batch 4,
    prompt 64, 32 decode steps) with every kernel's launch count reset just
    before and read just after; the decode logits against one forward pass over
@@ -24,7 +25,9 @@ Phases, each printing one JSON line:
    amplifies rounding past the bound, the JAX reference as much as the port);
 9. kernels: each kernel's time at the serving shapes (CUDA-graph replay, so no
    host gaps), its plain version's, the bound of the card, and a library call's;
-   flash attention also at a causal prompt of 4096 tokens.
+   flash attention also at a causal prompt of 4096 tokens, paged attention also
+   at 8192 tokens of context (planned at R = 4 and R = 1) and at several split
+   counts.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and the
 script exits non-zero; without a CUDA device it fails before printing anything.
@@ -90,6 +93,9 @@ FLASH_SHAPES = [   # Sq, Skv, H, Kh, D, causal, window (tests/test_kernels.py)
 # A long causal prompt (B, S, H = Kh, D): at 64 tokens every attention kernel is
 # latency-bound; here the tensor-core products dominate.
 LONG_PROMPT = (1, 4096, 16, 64)
+# A long decode context (B, tokens, page tokens): the serving shape's 1.8 MB
+# pool sits in L2; 134 MB of K/V a layer does not, as at long-context serving.
+LONG_DECODE = (4, 8192, 16)
 
 
 def emit(obj: dict) -> None:
@@ -231,12 +237,24 @@ def phase_compare(dev: torch.device) -> dict:
                                                  lengths), tol, what + " vs oracle")
                 report["paged"].append({"R": R, "contiguous": contig,
                                         "dtype": str(dtype), "max_abs_err": err})
+        for case in paged_edge_cases(dev, gen, dtype):
+            report["paged"].append({**check_paged_case(case, tol), "dtype": str(dtype)})
         q, kv, lengths, plan = paged_inputs(dev, gen, dtype)
         out = pa.paged_attention(q, kv, None, lengths, pages_per_block=4, plan=plan)
         torch.cuda.synchronize()
         main_err[("paged", dtype)] = max_err(
             out, pa.paged_attention_plain(q, kv, *plan, lengths, pages_per_block=4),
             tol, f"paged {dtype} serving shape")
+    q, kv, lengths, plans = paged_long_inputs(dev, gen)
+    main_err[("paged_long", torch.bfloat16)] = err = max_err(
+        pa.paged_attention(q, kv, None, lengths, pages_per_block=4, plan=plans[4][:2],
+                           live_blocks=plans[4][2]),
+        pa.paged_attention_plain(q, kv, *plans[4][:2], lengths, pages_per_block=4),
+        PAGED_TOL[torch.bfloat16], "paged long context")
+    report["paged"].append({"case": "long context", "dtype": "torch.bfloat16",
+                            "max_abs_err": err})
+    del q, kv, lengths, plans
+    torch.cuda.empty_cache()
     report["ssd"], main_err[("ssd", torch.float32)] = compare_ssd(dev, gen)
     emit({"phase": "kernels_vs_plain", **report,
           "serving_shape_max_abs_err": {f"{k}/{d}": e for (k, d), e in main_err.items()}})
@@ -319,6 +337,93 @@ def paged_inputs(dev, gen, dtype):
     kv = torch.randn(P, PAGE_TOKENS, 2, Kh, D, generator=gen, device=dev).to(dtype)
     lengths = torch.full((BATCH,), PROMPT + GEN, dtype=torch.int32, device=dev)
     return q, kv, lengths, pa.upload_plan(table, 4, dev)
+
+
+def paged_long_inputs(dev, gen):
+    """A long context off the serving path: qwen1.5-0.5b's heads, bf16, B 4,
+    each sequence one contiguous run of 8192 tokens in pages of 16, a pool of
+    2048 + 3 pages (134 MB of K/V, beyond the 50 MB L2). Returns q, pool,
+    lengths and the plan at R = 4 and R = 1 as (block_start, block_valid,
+    live descriptors)."""
+    cfg = get_config(ARCH)
+    H, Kh, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    B, S, T = LONG_DECODE
+    per_seq = S // T
+    table = np.arange(B * per_seq, dtype=np.int32).reshape(B, per_seq)
+    q = torch.randn(B, H, D, generator=gen, device=dev).bfloat16()
+    kv = torch.randn(B * per_seq + 4 - 1, T, 2, Kh, D, generator=gen, device=dev).bfloat16()
+    lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+    plans = {}
+    for R in (4, 1):
+        starts, valid = pa.plan_blocks(table, R)
+        dev_plan = torch.from_numpy(np.stack([starts, valid])).to(dev)
+        plans[R] = (dev_plan[0], dev_plan[1],
+                    pa.count_live_blocks(valid, np.full(B, S), T))
+    return q, kv, lengths, plans
+
+
+def paged_edge_cases(dev, gen, dtype):
+    """The paged kernel's edge cases: every G and D, lengths that end mid-page,
+    mid-stage and on a split boundary, trailing empty descriptors, a
+    fragmented R = 1 table, a pool view at layer 2 of 3, 2 and 4 KV heads a
+    CTA, forced splits with splits that hold no live token, and 4096 tokens
+    of context with S > 1. Yields dicts of the wrapper's arguments plus
+    ``what``, ``splits`` and ``heads`` (None: the wrapper's choice)."""
+    rng = np.random.default_rng(5)
+
+    def case(what, B, H, Kh, D, T, R, per_seq, lengths, *, contiguous=True,
+             layers=1, splits=None, heads=None):
+        P = B * per_seq + 8
+        table = -np.ones((B, per_seq + 2), np.int32)   # two trailing empty columns
+        pages = (np.arange(B * per_seq) if contiguous else rng.permutation(P)[:B * per_seq])
+        table[:, :per_seq] = pages.reshape(B, per_seq)
+        pool = torch.randn(layers, P + R - 1, T, 2, Kh, D, generator=gen,
+                           device=dev).to(dtype)
+        return {"what": what, "q": torch.randn(B, H, D, generator=gen, device=dev).to(dtype),
+                "kv": pool[layers - 1], "table": table, "R": R, "splits": splits,
+                "heads": heads,
+                "lengths": torch.tensor(lengths, dtype=torch.int32, device=dev)}
+
+    for G in (1, 2, 8):
+        for D in (32, 64, 128):
+            # lengths: full, mid-page, one token
+            yield case(f"G {G} D {D}", 3, 2 * G, 2, D, 16, 4, 9, [144, 87, 1])
+    # a stage is 16 tokens (f32, D 128) or 32 (bf16): 88 ends mid-stage either way
+    yield case("mid-stage", 2, 4, 4, 128, 16, 4, 8, [88, 128])
+    # R 1: 12 live descriptors in 4 forced splits of 3, so splits start at
+    # 48, 96 and 144 tokens; every length ends on a split boundary
+    yield case("split boundary", 3, 4, 2, 64, 16, 1, 16, [48, 96, 192], splits=4)
+    yield case("fragmented R 1", 3, 8, 4, 32, 8, 1, 6, [48, 41, 3], contiguous=False)
+    yield case("pool layer 2 of 3", 2, 16, 16, 64, 16, 4, 6, [96, 70], layers=3)
+    # several KV heads a CTA: one box holds their rows side by side
+    yield case("4 heads a CTA, 3 splits", 2, 16, 16, 64, 16, 4, 12, [192, 101], layers=2,
+               splits=3, heads=4)
+    yield case("2 heads a CTA, G 8 D 128", 2, 16, 2, 128, 16, 2, 9, [144, 33], heads=2)
+    # one long and one short sequence: the short one's later splits are empty
+    yield case("forced splits, empty splits", 2, 8, 2, 64, 16, 2, 16, [256, 20], splits=8)
+    yield case("4096 tokens, S > 1", 2, 8, 4, 64, 16, 4, 256, [4096, 3001])
+
+
+def check_paged_case(case: dict, tol: float) -> dict:
+    """One edge case through the kernel, held to the plain version and the oracle."""
+    q, kv, table, lengths, R = (case[k] for k in ("q", "kv", "table", "lengths", "R"))
+    B, H, _ = q.shape
+    starts, valid = pa.plan_blocks(table, R)
+    live = pa.count_live_blocks(valid, lengths.cpu().numpy(), kv.shape[1])
+    run_bytes = R * kv.shape[1] * 2 * kv.shape[4] * kv.element_size()
+    heads, splits = pa.launch_shape(B, kv.shape[3], live, pa.sm_count(q.device), run_bytes)
+    heads, splits = case["heads"] or heads, case["splits"] or splits
+    out = pa.paged_attention(q, kv, table, lengths, pages_per_block=R, splits=splits,
+                             heads_per_cta=heads, live_blocks=live)
+    torch.cuda.synchronize()
+    plan = pa.upload_plan(table, R, q.device)
+    what = f"paged {q.dtype} {case['what']}"
+    err = max_err(out, pa.paged_attention_plain(q, kv, *plan, lengths, pages_per_block=R),
+                  tol, what)
+    max_err(out, paged_attention_ref(q, kv, torch.from_numpy(table).to(q.device), lengths),
+            tol, what + " vs oracle")
+    return {"case": case["what"], "H": H, "Kh": kv.shape[3], "D": kv.shape[4], "R": R,
+            "heads_per_cta": heads, "splits": splits, "live_blocks": live, "max_abs_err": err}
 
 
 @torch.no_grad()
@@ -529,12 +634,46 @@ def flash_row(dev, gen, B: int, S: int, H: int, Kh: int, D: int, launches: int,
     return row
 
 
+def paged_row(q, kv, lengths, plan, live_blocks, launches: int, err: float, case: str,
+              plain_iters: int = 20) -> dict:
+    """The paged kernel's row of the kernels line, R = 4, bf16. Its library call
+    is SDPA over strided views of the pool's first B·pages pages: the same
+    function only because every table here is one contiguous, full-length run."""
+    B, H, D = q.shape
+    P, T, _, Kh, _ = kv.shape
+    tokens = int(lengths.sum())
+    pages = tokens // B // T
+    elem = q.element_size()
+    nbytes = (2 * q.numel() + tokens * 2 * Kh * D) * elem \
+        + (plan[0].numel() + plan[1].numel() + lengths.numel()) * 4
+    pb, pby = bound_ms(nbytes, 4 * D * H * tokens, q.dtype)
+    seq = kv[:B * pages].view(B, pages * T, 2, Kh, D)
+    k_lib, v_lib = seq[:, :, 0].transpose(1, 2), seq[:, :, 1].transpose(1, 2)
+    q_lib = q[:, :, None, :]
+    return {
+        "name": "paged_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention/kernel.py:108",
+        "launches": launches, "max_abs_err": err,
+        "ms": device_ms(lambda: pa.paged_attention(q, kv, None, lengths, pages_per_block=4,
+                                                   plan=plan, live_blocks=live_blocks)),
+        "plain_ms": device_ms(lambda: pa.paged_attention_plain(
+            q, kv, *plan, lengths, pages_per_block=4), iters=plain_iters),
+        "bound_ms": pb, "bound_by": pby,
+        "library_ms": device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q_lib, k_lib, v_lib, enable_gqa=H != Kh)),
+        "launch_shape": pa.launch_shape(B, Kh, live_blocks or plan[0].shape[1],
+                                        pa.sm_count(q.device), 4 * T * 2 * D * elem),
+        "case": case, "shape": {"q": list(q.shape), "pool": list(kv.shape),
+                                "tokens": tokens, "R": 4, "dtype": str(q.dtype)},
+    }
+
+
 def phase_kernels(dev: torch.device, main_err: dict, launches: dict) -> None:
     cfg = get_config(ARCH)
     gen = torch.Generator(device=dev).manual_seed(1)
     dt = torch.bfloat16
     H, Kh, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    elem = torch.finfo(dt).bits // 8
     flash = flash_row(dev, gen, BATCH, PROMPT, H, Kh, D, launches["flash_attention"],
                       main_err[("flash", dt)], "serving: qwen1.5-0.5b prefill")
     B, S, Hl, Dl = LONG_PROMPT
@@ -542,24 +681,35 @@ def phase_kernels(dev: torch.device, main_err: dict, launches: dict) -> None:
     flash_long = flash_row(dev, gen, B, S, Hl, Hl, Dl, launches["flash_attention"],
                            main_err[("flash_long", dt)], "long prompt, causal")
     pq, pkv, lengths, plan = paged_inputs(dev, gen, dt)
-    tokens = int(lengths.sum())
-    paged_bytes = (2 * pq.numel() + tokens * 2 * Kh * D) * elem \
-        + (plan[0].numel() + plan[1].numel() + lengths.numel()) * 4
-    pb, pby = bound_ms(paged_bytes, 4 * D * H * tokens, dt)
-    paged = {
-        "name": "paged_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/paged_attention.cu",
-        "replaces": "src/repro/kernels/paged_attention/kernel.py:108",
-        "launches": launches["paged_attention"],
-        "max_abs_err": main_err[("paged", dt)],
-        "ms": device_ms(lambda: pa.paged_attention(pq, pkv, None, lengths,
-                                                   pages_per_block=4, plan=plan)),
-        "plain_ms": device_ms(lambda: pa.paged_attention_plain(
-            pq, pkv, *plan, lengths, pages_per_block=4)),
-        "bound_ms": pb, "bound_by": pby, "library_ms": None,
-        "shape": {"q": list(pq.shape), "pool": list(pkv.shape), "tokens": tokens,
-                  "dtype": "bf16"},
-    }
+    live = -(-(PROMPT + GEN) // (PAGE_TOKENS * 4))   # as the last decode step plans it
+    paged = paged_row(pq, pkv, lengths, plan, live, launches["paged_attention"],
+                      main_err[("paged", dt)], "serving: qwen1.5-0.5b decode")
+    # S = 1 is split_count's choice here; S = 2 beside it
+    paged["ms_by_splits"] = {S: device_ms(lambda: pa.paged_attention(
+        pq, pkv, None, lengths, pages_per_block=4, plan=plan, live_blocks=live, splits=S))
+        for S in (1, 2)}
+    del pq, pkv, lengths, plan
+    pq, pkv, lengths, plans = paged_long_inputs(dev, gen)
+    B = pq.shape[0]
+    paged_long = paged_row(pq, pkv, lengths, plans[4][:2], plans[4][2],
+                           launches["paged_attention"], main_err[("paged_long", dt)],
+                           "long context, off the main path", plain_iters=2)
+    # the same data planned at R = 1 (one descriptor a page): at the wrapper's
+    # launch shape (4 KV heads a CTA share a 16 KB stage) and at R = 4's (one
+    # head a CTA), where a stage is one page instead of one 4-page run
+    sms = pa.sm_count(dev)
+    run_bytes = {R: R * pkv.shape[1] * 2 * D * pkv.element_size() for R in (4, 1)}
+    shapes = {R: pa.launch_shape(B, Kh, plans[R][2], sms, run_bytes[R]) for R in (4, 1)}
+    paged_long["ms_r1"] = device_ms(lambda: pa.paged_attention(
+        pq, pkv, None, lengths, pages_per_block=1, plan=plans[1][:2],
+        live_blocks=plans[1][2]))
+    paged_long["ms_r1_one_head_a_cta"] = device_ms(lambda: pa.paged_attention(
+        pq, pkv, None, lengths, pages_per_block=1, plan=plans[1][:2], live_blocks=plans[1][2],
+        heads_per_cta=1, splits=pa.split_count(B * Kh, plans[1][2], sms)))
+    paged_long["descriptors"] = {f"R{R}": int((plans[R][1] > 0).sum()) for R in (4, 1)}
+    paged_long["launch_shape"] = {f"R{R}": shapes[R] for R in (4, 1)}
+    del pq, pkv, lengths, plans
+    torch.cuda.empty_cache()
     x, Bm, Cm, dt_, A = ssd_inputs(dev, gen, *ssd_serving_shape()[:5], model_like=True)
     B_, L_, H_, P_, N_, K_ = ssd_serving_shape()
     sb, sby = bound_ms(*ssd_work(B_, L_, H_, P_, N_, K_), torch.float32)
@@ -576,7 +726,7 @@ def phase_kernels(dev: torch.device, main_err: dict, launches: dict) -> None:
         "shape": {"x": list(x.shape), "N": N_, "chunk": K_, "dtype": "f32",
                   "h_final": True},
     }
-    emit({"kernels": [flash, flash_long, paged, scan]})
+    emit({"kernels": [flash, flash_long, paged, paged_long, scan]})
 
 
 def ssd_work(B: int, L: int, H: int, P: int, N: int, K: int) -> tuple[int, int]:

@@ -6,6 +6,13 @@ reference's planner). ``paged_attention`` is the entry point: on a CUDA
 tensor it launches ``csrc/paged_attention.cu`` and adds one to
 ``launches``; on a CPU tensor it runs ``paged_attention_plain``, which
 computes the kernel's function from the same descriptors in plain torch.
+
+The kernel copies K/V in stages of ``STAGE_BYTES``, splits each
+sequence's descriptors over S CTAs (flash-decoding), and lets a CTA cover
+1, 2 or 4 neighbouring KV heads when one head's run is smaller than a
+stage. All of it comes from what the host knows without asking the
+device: ``count_live_blocks`` on the numpy plan and lengths, and
+``launch_shape`` and ``box_tokens`` over the shapes and the SM count.
 """
 
 from __future__ import annotations
@@ -23,6 +30,11 @@ from .. import _build
 NEG_INF = -1e30
 MAX_GROUP = 8                       # query heads per KV head the kernel takes
 HEAD_DIMS = (32, 64, 128)
+CTAS_PER_SM = 2                     # a long context's splits fill the card this deep
+MIN_BLOCKS_PER_SPLIT = 4            # descriptors a split needs to fill the copy ring
+HEADS_PER_CTA = (4, 2, 1)           # KV heads one CTA may cover, widest first
+STAGE_BYTES = 16 * 1024             # one copy a stage: a 4-page run of bf16 D=64 K/V
+MAX_BOX_TOKENS = 256                # TMA's limit on a box extent
 
 launches = 0                        # kernel launches since the last reset
 
@@ -65,6 +77,58 @@ def descriptor_stats(page_table: np.ndarray, pages_per_block: int) -> dict:
             "reduction": pages / max(descs, 1)}
 
 
+def count_live_blocks(block_valid: np.ndarray, lengths: np.ndarray,
+                      page_tokens: int) -> int:
+    """The most descriptors any sequence needs: those with valid pages that
+    start before its length (host arrays, so no device round trip)."""
+    valid = np.asarray(block_valid, np.int64)
+    before = (valid.cumsum(1) - valid) * page_tokens
+    live = (valid > 0) & (before < np.asarray(lengths, np.int64)[:, None])
+    return int(live.sum(1).max(initial=0))
+
+
+def split_count(ctas: int, live_blocks: int, sm_count: int) -> int:
+    """How many splits share each of ``ctas`` (sequence, head group) pairs:
+    enough for ``CTAS_PER_SM`` CTAs on every SM, but at least
+    ``MIN_BLOCKS_PER_SPLIT`` live descriptors each, so a short context keeps
+    one CTA (no combine launch) and no split is ever planned without a live
+    descriptor."""
+    want = -(-CTAS_PER_SM * sm_count // max(ctas, 1))
+    S = max(1, min(want, live_blocks // MIN_BLOCKS_PER_SPLIT))
+    per = -(-live_blocks // S) if live_blocks else 1
+    return max(1, -(-live_blocks // per))   # the kernel's per; no trailing empty split
+
+
+def box_tokens(run_tokens: int, row_bytes: int) -> int:
+    """Tokens one stage (one TMA box) holds, for rows of ``row_bytes`` (K and
+    V of the CTA's heads): the whole run when it fits ``STAGE_BYTES``, else
+    the run cut into the fewest equal pieces that fit."""
+    k = 1
+    while True:
+        c = -(-run_tokens // k)
+        if c <= MAX_BOX_TOKENS and c * row_bytes <= STAGE_BYTES or c == 1:
+            return c
+        k += 1
+
+
+def launch_shape(batch: int, kv_heads: int, live_blocks: int, sm_count: int,
+                 run_bytes: int) -> Tuple[int, int]:
+    """(KV heads a CTA, splits S). One head a CTA copies one R-page run of
+    its K and V (``run_bytes``) a stage; when a run is smaller than a stage
+    (short pages, R = 1 or a fragmented table) the widest head group whose
+    runs still fit a stage and whose splits still give every SM a CTA
+    copies the group's rows side by side instead, so each copy stays a
+    stage long."""
+    for heads in HEADS_PER_CTA:
+        if kv_heads % heads or (heads > 1 and heads * run_bytes > STAGE_BYTES):
+            continue
+        ctas = batch * kv_heads // heads
+        S = split_count(ctas, live_blocks, sm_count)
+        if heads == 1 or ctas * S >= sm_count:
+            return heads, S
+    raise AssertionError("unreachable: one head a CTA always fits")
+
+
 def paged_attention_plain(q: torch.Tensor, kv_pages: torch.Tensor,
                           block_start: torch.Tensor, block_valid: torch.Tensor,
                           lengths: torch.Tensor, *, pages_per_block: int
@@ -104,23 +168,43 @@ def upload_plan(page_table: np.ndarray, pages_per_block: int,
 def paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
                     page_table: np.ndarray, lengths: torch.Tensor,
                     *, pages_per_block: int = 4,
-                    plan: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                    ) -> torch.Tensor:
+                    plan: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    live_blocks: Optional[int] = None,
+                    splits: Optional[int] = None,
+                    heads_per_cta: Optional[int] = None) -> torch.Tensor:
     """Decode attention of one query token per sequence over a paged pool.
 
     ``plan`` is a precomputed ``(block_start, block_valid)`` pair of int32
     (B, NB) tensors on q's device; without it the table is planned here.
+    ``live_blocks`` is the host's bound on the descriptors any sequence
+    needs (``count_live_blocks``); it only balances the kernel's splits,
+    and without it the plan's own count (or NB) stands in. ``splits`` and
+    ``heads_per_cta`` fix what ``launch_shape`` would choose.
     """
     if plan is None:
-        plan = upload_plan(np.asarray(page_table), pages_per_block, q.device)
+        starts, valid = plan_blocks(np.asarray(page_table), pages_per_block)
+        if live_blocks is None:     # lengths stay on the device: count every valid one
+            live_blocks = int((valid > 0).sum(1).max(initial=0))
+        both = torch.from_numpy(np.stack([starts, valid])).to(q.device)
+        plan = both[0], both[1]
     block_start, block_valid = plan
     if q.device.type == "cpu":
         return paged_attention_plain(q, kv_pages, block_start, block_valid,
                                      lengths, pages_per_block=pages_per_block)
-    return _launch(q, kv_pages, block_start, block_valid, lengths)
+    if live_blocks is None:
+        live_blocks = block_start.shape[1]
+    return _launch(q, kv_pages, block_start, block_valid, lengths,
+                   pages_per_block, live_blocks, splits, heads_per_cta)
 
 
-def _launch(q, kv_pages, block_start, block_valid, lengths) -> torch.Tensor:
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, read once per device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch(q, kv_pages, block_start, block_valid, lengths, pages_per_block,
+            live_blocks, splits, heads_per_cta) -> torch.Tensor:
     global launches
     B, H, D = q.shape
     P, T, two, Kh, Dk = kv_pages.shape
@@ -141,13 +225,28 @@ def _launch(q, kv_pages, block_start, block_valid, lengths) -> torch.Tensor:
     tensors = (q, kv_pages, block_start, block_valid, lengths)
     if any(t.device != q.device or not t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention takes contiguous tensors on one device")
+    if q.data_ptr() % 16 or kv_pages.data_ptr() % 16:
+        raise ValueError("paged_attention needs q and the pool 16-byte aligned "
+                         "(16-byte vector loads and the TMA copies)")
+    live = max(1, min(int(live_blocks), NB))
+    row_bytes = 2 * D * q.element_size()                    # K and V of one head
+    heads, S = launch_shape(B, Kh, live, sm_count(q.device),
+                            pages_per_block * T * row_bytes)
+    heads, S = heads_per_cta or heads, splits or S
+    if not 1 <= S <= NB or heads not in HEADS_PER_CTA or Kh % heads:
+        raise ValueError(f"paged_attention: splits must be in [1, {NB}] and heads_per_cta "
+                         f"in {HEADS_PER_CTA} dividing Kh = {Kh}, got {S} and {heads}")
     out = torch.empty_like(q)
+    partial = (torch.empty(B * Kh * S * (H // Kh) * (D + 2), dtype=torch.float32,
+                           device=q.device) if S > 1 else None)
     lib = _lib()
     rc = lib.paged_attention_fwd(
         q.data_ptr(), kv_pages.data_ptr(), block_start.data_ptr(),
         block_valid.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, H, Kh, D, T, NB, int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        None if partial is None else partial.data_ptr(),
+        B, H, Kh, D, T, P, NB, box_tokens(pages_per_block * T, heads * row_bytes),
+        live, heads, S,
+        int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "paged_attention_fwd")
     launches += 1
     return out
@@ -156,7 +255,7 @@ def _launch(q, kv_pages, block_start, block_valid, lengths) -> torch.Tensor:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("paged_attention")
-    lib.paged_attention_fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    lib.paged_attention_fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
                                         + [ctypes.c_void_p])
     lib.paged_attention_fwd.restype = ctypes.c_int
     return lib

@@ -19,7 +19,8 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention_op
-from ..kernels.paged_attention.ops import paged_attention, plan_blocks
+from ..kernels.paged_attention.ops import (count_live_blocks, paged_attention,
+                                           plan_blocks)
 from ..memory.kv_cache import PageAllocator
 from .layers import apply_rope, weight
 
@@ -73,6 +74,7 @@ class DecodePlan:
     block_valid: torch.Tensor   # (B, NB) int32: pages in the block
     lengths: torch.Tensor       # (B,) int32: tokens once this step's is written
     slot: torch.Tensor          # (B,) int32: flat token slot of this step's k/v
+    live_blocks: int            # host: most descriptors a sequence needs
 
     @property
     def positions(self) -> torch.Tensor:
@@ -127,7 +129,9 @@ class PagedKVPool:
         """Plan the blocks and this step's write slot on the host; one copy up.
 
         ``cur_index`` (B,) is each sequence's position of the token being
-        decoded, i.e. its cached tokens so far.
+        decoded, i.e. its cached tokens so far. Each sequence holds all its
+        pages from the start, so early in decode its last descriptors hold
+        no live token: ``live_blocks`` counts only those that do.
         """
         cur = np.asarray(cur_index, np.int64)
         starts, valid = plan_blocks(self.page_table, self.pages_per_block)
@@ -137,7 +141,8 @@ class PagedKVPool:
         B, NB = starts.shape
         n = B * NB
         return DecodePlan(dev[:n].view(B, NB), dev[n:2 * n].view(B, NB),
-                          dev[2 * n:2 * n + B], dev[2 * n + B:])
+                          dev[2 * n:2 * n + B], dev[2 * n + B:],
+                          count_live_blocks(valid, cur + 1, self.page_tokens))
 
 
 def attention_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
@@ -150,5 +155,6 @@ def attention_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     cache.write(layer, plan.slot[:, None], k, v)
     out = paged_attention(q[:, 0], cache.pool[layer], cache.page_table,
                           plan.lengths, pages_per_block=cache.pages_per_block,
-                          plan=(plan.block_start, plan.block_valid))
+                          plan=(plan.block_start, plan.block_valid),
+                          live_blocks=plan.live_blocks)
     return out.reshape(B, 1, cfg.num_heads * cfg.head_dim) @ p.wo

@@ -276,6 +276,227 @@ def test_paged_kernel_vs_plain_on_gpu(cuda, dtype):
 
 
 # ---------------------------------------------------------------------------
+# paged attention: the CUDA kernel's split schedule, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def paged_split_schedule(q, kv, block_start, block_valid, lengths, *, pages_per_block,
+                         splits, live_blocks, heads=1):
+    """The kernel's schedule in plain torch, f32 in the log2 domain: split s of
+    sequence b walks descriptors [s·per, (s+1)·per) (per = ceil(live/S), the
+    last split on to NB) from cnt = Σ_{j<first} valid[b, j], one stage of at
+    most C tokens at a time (C from the row of ``heads`` KV heads a CTA
+    copies), stopping at the length; each split leaves a partial (acc, m, l)
+    per head; the combine merges them. Returns (out, partials) with partials
+    (B, Kh, S, G, D + 2)."""
+    B, H, D = q.shape
+    P, T, _, Kh, _ = kv.shape
+    G, NB, S = H // Kh, block_start.shape[1], splits
+    C = pa.box_tokens(pages_per_block * T, 2 * heads * D * kv.element_size())
+    per = -(-live_blocks // S)
+    scale = D ** -0.5 * 1.4426950408889634
+    rows = kv.reshape(P * T, 2, Kh, D).float()
+    starts, valid = block_start.long(), block_valid.long()
+    partials = torch.zeros(B, Kh, S, G, D + 2)
+    for b in range(B):
+        length, qh = int(lengths[b]), q[b].reshape(Kh, G, D).float()
+        for s in range(S):
+            first = min(NB, s * per)
+            last = NB if s == S - 1 else min(NB, first + per)
+            cnt = int(valid[b, :first].sum())
+            m, l, acc = torch.full((Kh, G), -1e30), torch.zeros(Kh, G), torch.zeros(Kh, G, D)
+            for i in range(first, last):
+                if cnt * T >= length:
+                    break                                   # past the length
+                nvalid = int(valid[b, i])
+                ntok = min(nvalid * T, length - cnt * T)
+                for c0 in range(0, max(ntok, 0), C):
+                    tok = int(starts[b, i]) * T + c0 + torch.arange(min(C, ntok - c0))
+                    k, v = rows[tok, 0], rows[tok, 1]       # (n, Kh, D)
+                    sc = torch.einsum("kgd,nkd->kgn", qh, k) * scale
+                    m_new = torch.maximum(m, sc.amax(-1))
+                    p = torch.exp2(sc - m_new[..., None])
+                    corr = torch.exp2(m - m_new)
+                    l = l * corr + p.sum(-1)
+                    acc = acc * corr[..., None] + torch.einsum("kgn,nkd->kgd", p, v)
+                    m = m_new
+                cnt += nvalid
+            partials[b, :, s] = torch.cat([acc, m[..., None], l[..., None]], -1)
+    m_all = partials[..., D].amax(dim=2, keepdim=True)                # (B, Kh, 1, G)
+    c = torch.exp2(partials[..., D] - m_all)
+    l_all = (partials[..., D + 1] * c).sum(2)
+    acc_all = (partials[..., :D] * c[..., None]).sum(2)
+    out = acc_all / l_all.clamp(min=1e-30)[..., None]
+    return out.reshape(B, H, D).to(q.dtype), partials
+
+
+GD = [(G, D) for G in (1, 2, 8) for D in (32, 64, 128)]
+SPLIT_CASES = [(R, contig, dtype, *GD[i % len(GD)]) for i, (R, contig, dtype) in enumerate(
+    (R, c, d) for R in (1, 2, 4) for c in (True, False) for d in DTYPES)]
+
+
+@pytest.mark.parametrize("R,contig,dtype,G,D", SPLIT_CASES)
+def test_paged_split_schedule_vs_reference(ref, R, contig, dtype, G, D):
+    """Every split count from 1 to the live-descriptor count gives the JAX
+    oracle's and the interpret-mode Pallas kernel's answer; each split starts
+    from its own cnt, and the combine merges the partials."""
+    B, Kh, T, P, Pmax = 3, 2, 8, 48, 8
+    H = G * Kh
+    rng = np.random.default_rng(100 * R + 10 * contig + G + D)
+    qj, qt = both(ref, rng, (B, H, D), dtype)
+    kvj, kvt = both(ref, rng, (P, T, 2, Kh, D), dtype)
+    table = random_table(rng, B, Pmax, P, contig)
+    table[0, :] = -1                       # one sequence spans every column: most live
+    table[0] = (np.arange(Pmax) if contig else rng.choice(P, Pmax, replace=False))
+    lengths = ((table >= 0).sum(1) * T - rng.integers(0, T, B)).astype(np.int32)
+    jnp, tol = ref.jnp, PAGED_TOL[dtype]
+    oracle = ref.paged_oracle(qj, kvj, jnp.asarray(table), jnp.asarray(lengths))
+    pallas = ref.paged.paged_attention(qj, kvj, table, jnp.asarray(lengths),
+                                       pages_per_block=R)
+    close(pallas, oracle, tol)
+    starts, valid = pa.plan_blocks(table, R)
+    live = pa.count_live_blocks(valid, lengths, T)
+    assert live >= (valid[0] > 0).sum() >= 2   # sequence 0's descriptors are all live
+    empty_splits = 0
+    for S in range(1, live + 1):
+        for heads in (1, 2):                   # one or both KV heads a CTA: other stages
+            out, partials = paged_split_schedule(
+                qt, kvt, torch.from_numpy(starts), torch.from_numpy(valid),
+                torch.from_numpy(lengths), pages_per_block=R, splits=S, live_blocks=live,
+                heads=heads)
+            assert out.dtype == getattr(torch, dtype) and out.shape == (B, H, D)
+            close(out, oracle, tol)
+            close(out, pallas, tol)
+            empty_splits += int((partials[..., D + 1] == 0).all(-1).sum())
+    if live > 1:
+        assert empty_splits > 0            # shorter sequences leave splits with no live token
+
+
+def test_paged_split_with_no_live_token(ref):
+    """A short sequence beside a long one: at S = live its later splits see
+    valid pages past its length, stay (m, l, acc) = (−1e30, 0, 0), and the
+    combine still gives the oracle's answer; so does the last split, which
+    runs on over trailing empty descriptors."""
+    B, H, Kh, D, T, R, P = 2, 4, 2, 32, 8, 1, 24
+    rng = np.random.default_rng(3)
+    qj, qt = both(ref, rng, (B, H, D), "float32")
+    kvj, kvt = both(ref, rng, (P, T, 2, Kh, D), "float32")
+    table = -np.ones((B, 10), np.int32)
+    table[:, :8] = np.arange(16).reshape(B, 8)
+    lengths = np.array([8 * T, 5], np.int32)
+    starts, valid = pa.plan_blocks(table, R)
+    live = pa.count_live_blocks(valid, lengths, T)
+    assert live == 8 and (valid[1] > 0).sum() == 8     # 8 valid, 1 live for sequence 1
+    out, partials = paged_split_schedule(
+        qt, kvt, torch.from_numpy(starts), torch.from_numpy(valid), torch.from_numpy(lengths),
+        pages_per_block=R, splits=live, live_blocks=live)
+    assert (partials[1, :, 1:, :, D + 1] == 0).all()
+    assert (partials[1, :, 1:, :, D] == -1e30).all()
+    assert (partials[0, :, :, :, D + 1] > 0).all()
+    jnp = ref.jnp
+    close(out, ref.paged_oracle(qj, kvj, jnp.asarray(table), jnp.asarray(lengths)),
+          PAGED_TOL["float32"])
+
+
+def test_paged_split_count():
+    """S = 1 at qwen1.5-0.5b's serving shape (B·Kh = 64, 96 tokens = 2 live
+    descriptors at R = 4); S > 1 at 8192 tokens (128 live); never more
+    splits than live descriptors, and enough CTAs for two an SM when there
+    are descriptors to share."""
+    sms = 132
+    assert pa.split_count(4 * 16, 2, sms) == 1
+    long_ctx = pa.split_count(4 * 16, 128, sms)
+    assert long_ctx > 1 and 4 * 16 * long_ctx >= 2 * sms
+    assert sms <= pa.split_count(1, 4096, sms) <= 2 * sms   # 16 descriptors a split
+    for bkh in (1, 8, 64, 512):
+        for live in range(0, 300, 7):
+            S = pa.split_count(bkh, live, sms)
+            assert 1 <= S <= max(1, live)
+            assert S == 1 or live // S >= pa.MIN_BLOCKS_PER_SPLIT
+            per = -(-live // S)
+            assert live == 0 or (S - 1) * per < live      # the kernel's last split has work
+
+
+def test_paged_launch_shape():
+    """qwen1.5-0.5b's heads (bf16, D 64, pages of 16): at R = 4 a run is one
+    16 KB stage, so one KV head a CTA, S = 1 at the serving shape and 5
+    splits of ≤ 26 runs at 8192 tokens; at R = 1 a run is 4 KB, so 4 heads
+    a CTA share a stage, in 17 splits with no empty one; a head count that
+    4 does not divide takes 2; a run of a stage or more never widens."""
+    sms, run4, run1 = 132, 4 * 16 * 256, 16 * 256
+    assert pa.launch_shape(4, 16, 2, sms, run4) == (1, 1)
+    assert pa.launch_shape(4, 16, 128, sms, run4) == (1, 5)
+    assert pa.launch_shape(4, 16, 512, sms, run1) == (4, 17)
+    assert pa.launch_shape(4, 6, 512, sms, run1)[0] == 2
+    assert pa.launch_shape(1, 1, 512, sms, run1) == (1, pa.split_count(1, 512, sms))
+    for B, Kh, live in ((4, 16, 128), (2, 8, 64), (1, 2, 300), (8, 4, 9)):
+        for run in (run1, run4, 2 * run4):
+            heads, S = pa.launch_shape(B, Kh, live, sms, run)
+            assert Kh % heads == 0 and 1 <= S <= max(1, live)
+            assert heads == 1 or heads * run <= pa.STAGE_BYTES
+
+
+def test_paged_box_tokens():
+    """A stage is a whole run when it fits 16 KB (R 4, pages of 16, bf16 D 64
+    K and V rows of 256 bytes), else the fewest equal pieces; never above
+    TMA's 256-token box."""
+    assert pa.box_tokens(64, 256) == 64
+    assert pa.box_tokens(64, 1024) == 16
+    assert pa.box_tokens(64, 2048) == 8
+    assert pa.box_tokens(16, 1024) == 16
+    assert pa.box_tokens(512, 32) == 256
+    assert pa.box_tokens(8, 64 * 1024) == 1
+
+
+def test_count_live_blocks_stops_at_the_length():
+    table = np.arange(12, dtype=np.int32).reshape(2, 6)
+    starts, valid = pa.plan_blocks(table, 2)
+    assert (valid > 0).sum(1).tolist() == [3, 3]
+    assert pa.count_live_blocks(valid, np.array([96, 96]), 16) == 3
+    assert pa.count_live_blocks(valid, np.array([33, 1]), 16) == 2
+    assert pa.count_live_blocks(valid, np.array([32, 1]), 16) == 1
+
+
+def test_decode_plan_counts_live_blocks():
+    """PagedKVPool gives a sequence all its pages up front; early in decode
+    the plan counts only the descriptors below the length."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.attention import PagedKVPool
+    cfg = get_reduced("qwen1.5-0.5b")
+    pool = PagedKVPool(cfg, 2, 256, page_tokens=16, pages_per_block=4,
+                       device=torch.device("cpu"))
+    assert pool.plan_step(np.array([10, 64])).live_blocks == 2
+    assert pool.plan_step(np.array([10, 20])).live_blocks == 1
+    assert pool.plan_step(np.array([255, 0])).live_blocks == 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_edge_cases_on_gpu(cuda, dtype):
+    """Every G and D, lengths ending mid-page, mid-stage and on a split
+    boundary, trailing empty descriptors, a fragmented R = 1 table, a pool
+    view at layer 2 of 3, forced splits with empty ones and 4096 tokens at
+    S > 1, against the plain version and the oracle (chip_smoke.py's cases)."""
+    import chip_smoke
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    saw_split = False
+    for case in chip_smoke.paged_edge_cases(cuda, gen, dtype):
+        before = pa.launches
+        row = chip_smoke.check_paged_case(case, PAGED_TOL[str(dtype).split(".")[1]])
+        assert pa.launches == before + 1
+        saw_split |= row["case"].startswith("4096") and row["splits"] > 1
+    assert saw_split
+
+
+def test_paged_wrapper_rejects_misaligned_pool_on_gpu(cuda):
+    q = torch.zeros(1, 2, 32, device=cuda)
+    flat = torch.zeros(4 * 8 * 2 * 2 * 32 + 1, device=cuda)
+    kv = flat[1:].view(4, 8, 2, 2, 32)                 # 4 bytes off a 16-byte boundary
+    with pytest.raises(ValueError, match="aligned"):
+        pa.paged_attention(q, kv, np.array([[0, 1]], np.int32),
+                           torch.tensor([16], dtype=torch.int32, device=cuda),
+                           pages_per_block=2)
+
+
+# ---------------------------------------------------------------------------
 # SSD chunk scan
 # ---------------------------------------------------------------------------
 

@@ -10,6 +10,7 @@ means anything. Needs an NVIDIA GPU and nvcc; prints one JSON line per
 variant, then the card's name and power limit::
 
     python tools/kernel_variants.py            # build and time every variant
+    python tools/kernel_variants.py paged      # only one kernel's (ssd_scan, flash, paged)
     python tools/kernel_variants.py --check    # only apply the edits (no GPU)
 """
 
@@ -60,6 +61,22 @@ FLASH = {
     "exp2f": [('asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));', "y = exp2f(x);")],
 }
 
+# (old, new) edits of csrc/paged_attention.cu; timed at chip_smoke.py's long
+# decode context (8192 tokens a sequence) planned at R = 4 and R = 1, each at
+# the wrapper's launch shape; the shipped source also at other launch shapes
+# and stage sizes (call arguments, no edit)
+NO_COMPUTE = [("for (int base = slice * RW; base < n;", "for (int base = slice * RW; base < 0;")]
+STAGES = "constexpr int kStages = 2;"
+PAGED = {
+    "shipped": [],
+    "no_compute": NO_COMPUTE,
+    "l2_none": [("CU_TENSOR_MAP_L2_PROMOTION_L2_256B", "CU_TENSOR_MAP_L2_PROMOTION_NONE")],
+    "stages_3": [(STAGES, "constexpr int kStages = 3;")],
+    "stages_4": [(STAGES, "constexpr int kStages = 4;")],
+    "stages_4_no_compute": NO_COMPUTE + [(STAGES, "constexpr int kStages = 4;")],
+    "batch_2": [("constexpr int kBatch = 4;", "constexpr int kBatch = 2;")],
+}
+
 
 def write_variants(kind: str, variants: dict) -> dict:
     """Apply each variant's edits to csrc/<kind>.cu; returns name → source path."""
@@ -93,21 +110,38 @@ def build(paths: dict) -> dict:
 
 
 def main() -> None:
-    ssd_src, flash_src = write_variants("ssd_scan", SSD), write_variants("flash_attention", FLASH)
+    kinds = {"ssd_scan": SSD, "flash": FLASH, "paged": PAGED}
+    only = [a for a in sys.argv[1:] if a in kinds] or list(kinds)
+    sources = {k: write_variants({"flash": "flash_attention", "paged": "paged_attention"}
+                                 .get(k, k), kinds[k]) for k in only}
     if "--check" in sys.argv:
-        print(json.dumps({"variants": sorted(ssd_src) + sorted(flash_src)}))
+        print(json.dumps({"variants": sorted(f"{k}/{v}" for k in sources for v in sources[k])}))
         return
     import torch
 
     import chip_smoke as cs
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: torch sees no CUDA device")
-    ssd_libs, flash_libs = build(ssd_src), build(flash_src)
+    libs = {k: build(src) for k, src in sources.items()}
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(1)
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
+
+    if "ssd_scan" in libs:
+        time_ssd(cs, libs["ssd_scan"], dev, gen, stream)
+    if "flash" in libs:
+        time_flash(cs, libs["flash"], dev, gen, stream)
+    if "paged" in libs:
+        time_paged(cs, libs["paged"], dev, gen, stream)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip())
+
+
+def time_ssd(cs, ssd_libs, dev, gen, stream) -> None:
+    import torch
 
     B, L, H, P, N, K = cs.ssd_serving_shape()
     x, Bm, Cm, dt, A = cs.ssd_inputs(dev, gen, B, L, H, P, N, model_like=True)
@@ -125,6 +159,9 @@ def main() -> None:
         print(json.dumps({"kernel": "ssd_scan", "variant": name, "ms": cs.device_ms(call),
                           "ptxas": used}), flush=True)
 
+
+def time_flash(cs, flash_libs, dev, gen, stream) -> None:
+    import torch
     Bf, S, Hf, D = cs.LONG_PROMPT
     q, k, v = (torch.randn(Bf, S, Hf, D, generator=gen, device=dev).bfloat16()
                for _ in range(3))
@@ -141,9 +178,36 @@ def main() -> None:
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     print(json.dumps({"kernel": "scaled_dot_product_attention", "ms": cs.device_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True))}))
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip())
+
+
+def time_paged(cs, paged_libs, dev, gen, stream) -> None:
+    from repro_torch.kernels.paged_attention import ops as pa
+    import torch
+    q, kv, lengths, plans = cs.paged_long_inputs(dev, gen)
+    B, H, D = q.shape
+    P, T, _, Kh, _ = kv.shape
+    row = 2 * D * q.element_size()                # K and V of one head, one token
+    sms = pa.sm_count(dev)
+    out = torch.empty_like(q)
+    partial = torch.empty(B * Kh * 64 * (H // Kh) * (D + 2), device=dev)
+    for name, (so, used) in paged_libs.items():
+        fn = ctypes.CDLL(str(so)).paged_attention_fwd
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+        for R, (starts, valid, live) in plans.items():
+            heads, S = pa.launch_shape(B, Kh, live, sms, R * T * row)
+            shapes = [(heads, S, pa.box_tokens(R * T, heads * row))]
+            if name == "shipped":               # (heads a CTA, splits, tokens a stage)
+                shapes += ([(1, 4, 64), (1, 8, 64), (1, 5, 32), (1, 5, 16), (2, 9, 32),
+                            (4, 17, 16)] if R == 4 else [(1, 5, 16), (2, 9, 16)])
+            for heads, S, box in shapes:
+                def call():
+                    _build.check(fn(q.data_ptr(), kv.data_ptr(), starts.data_ptr(),
+                                    valid.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                                    partial.data_ptr(), B, H, Kh, D, T, P, starts.shape[1],
+                                    box, live, heads, S, 1, stream()), name)
+                print(json.dumps({"kernel": "paged_attention", "variant": name, "R": R,
+                                  "heads_per_cta": heads, "splits": S, "box_tokens": box,
+                                  "ms": cs.device_ms(call), "ptxas": used[:1]}), flush=True)
 
 
 if __name__ == "__main__":
