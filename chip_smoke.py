@@ -23,7 +23,18 @@ Phases, each printing one JSON line:
 8. ssm_f32: the decode-vs-forward bound for mamba2 on an f32 copy of the served
    weights, over the served tokens (in bf16 the random full-width model
    amplifies rounding past the bound, the JAX reference as much as the port);
-9. kernels: each kernel's time at the serving shapes (CUDA-graph replay, so no
+9. serve_spill: qwen1.5-0.5b at full width again, with ``--spill --donors 3
+   --replication 2 --clients 2``: the ``kv_store`` on the card, donor memory
+   pinned on the host; sequence 0's gather byte-exact after its spill and fetch,
+   the same kernel launches as ``serve``, no failed transfer, struck donor or
+   disk access;
+10. kv_spill: a long-context pool through the RDMAbox engine: qwen1.5-0.5b's
+   per-layer K/V (2·16·64 bf16 features, 4 KB a token) for 4 sequences of 8192
+   tokens in pages of 16 (2048 + 3 pages, 128 MiB on the card) held as a
+   ``kv_store``; paged attention over it, every sequence spilled to 3 donors
+   and fetched back, paged attention again; spill and fetch rates beside one
+   plain ``copy_`` of the same bytes to pinned memory and back;
+11. kernels: each kernel's time at the serving shapes (CUDA-graph replay, so no
    host gaps), its plain version's, the bound of the card, and a library call's;
    flash attention also at a causal prompt of 4096 tokens, paged attention also
    at 8192 tokens of context (planned at R = 4 and R = 1) and at several split
@@ -48,7 +59,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import box  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.buffers import copy_parts  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
@@ -669,7 +682,8 @@ def paged_row(q, kv, lengths, plan, live_blocks, launches: int, err: float, case
     }
 
 
-def phase_kernels(dev: torch.device, main_err: dict, launches: dict) -> None:
+def phase_kernels(dev: torch.device, main_err: dict, launches: dict,
+                  kv_spill_launches: int) -> None:
     cfg = get_config(ARCH)
     gen = torch.Generator(device=dev).manual_seed(1)
     dt = torch.bfloat16
@@ -708,6 +722,7 @@ def phase_kernels(dev: torch.device, main_err: dict, launches: dict) -> None:
         heads_per_cta=1, splits=pa.split_count(B * Kh, plans[1][2], sms)))
     paged_long["descriptors"] = {f"R{R}": int((plans[R][1] > 0).sum()) for R in (4, 1)}
     paged_long["launch_shape"] = {f"R{R}": shapes[R] for R in (4, 1)}
+    paged_long["launches_kv_spill"] = kv_spill_launches
     del pq, pkv, lengths, plans
     torch.cuda.empty_cache()
     x, Bm, Cm, dt_, A = ssd_inputs(dev, gen, *ssd_serving_shape()[:5], model_like=True)
@@ -727,6 +742,170 @@ def phase_kernels(dev: torch.device, main_err: dict, launches: dict) -> None:
                   "h_final": True},
     }
     emit({"kernels": [flash, flash_long, paged, paged_long, scan]})
+
+
+def check_engine_clean(stats: dict, what: str) -> dict:
+    """No failed transfer, no struck donor, no disk access: the engine's
+    fallbacks must not have carried any part of a run."""
+    wc_errors = {n: nic["wc_errors"] for n, nic in stats["nic"].items()}
+    paging = {i: c["paging"] for i, c in stats["client"].items()}
+    bad = {n: e for n, e in wc_errors.items() if e}
+    for i, p in paging.items():
+        for key in ("write_failures", "read_failovers", "disk_reads",
+                    "disk_writes", "disk_fallback_reads", "evictions"):
+            if p[key]:
+                bad[f"client {i} {key}"] = p[key]
+        if p["failed_donors"]:
+            bad[f"client {i} failed_donors"] = p["failed_donors"]
+    if stats["fabric"]["faults"]["injected"]:
+        bad["injected faults"] = stats["fabric"]["faults"]["injected"]
+    if bad:
+        raise AssertionError(f"{what}: the engine fell back: {bad}")
+    return {"wc_errors": sum(wc_errors.values()),
+            "disk": {i: (p["disk_reads"], p["disk_writes"]) for i, p in paging.items()}}
+
+
+def same_bytes(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(a.reshape(-1).view(torch.uint8),
+                                              b.reshape(-1).view(torch.uint8))
+
+
+@torch.no_grad()
+def phase_serve_spill() -> dict:
+    """The serving path with the remote-KV tier: the kv_store on the card,
+    sequence 0 spilled and fetched while a second client pages to the same
+    donors."""
+    cfg = get_config(ARCH)
+    reset_launches()
+    res = serve.main(["--arch", ARCH, "--batch", str(BATCH), "--prompt-len", str(PROMPT),
+                      "--gen", str(GEN), "--page-tokens", str(PAGE_TOKENS), "--spill",
+                      "--donors", "3", "--replication", "2", "--clients", "2"])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {"flash_attention": cfg.num_layers, "paged_attention": cfg.num_layers * GEN,
+            "ssd_scan": 0}
+    if launches != want:
+        raise AssertionError(f"serve --spill launches {launches}, want {want}")
+    sp = res.spill
+    if sp.kv.pool.device.type != "cuda":
+        raise AssertionError(f"kv_store pool on {sp.kv.pool.device}, not the card")
+    after = sp.kv.gather(0)
+    if not same_bytes(after, sp.seq0_before):
+        raise AssertionError("serve --spill: sequence 0's gather changed over spill/fetch")
+    clean = check_engine_clean(sp.stats, "serve --spill")
+    client = sp.stats["client"]["0"]["box"]
+    emit({"phase": "serve_spill", "arch": ARCH, "batch": BATCH, "prompt": PROMPT,
+          "gen": GEN, "launches": launches, "seq0_tokens": after.shape[0],
+          "seq0_bytes_exact": True,
+          "rdma_ops": sp.stats["nic"]["0"]["rdma_ops"],
+          "merge": client["merge"], "poll": client["poll"],
+          "bg_pages_per_s": sp.bg_rates, "decode_tok_s": GEN * BATCH / res.decode_s,
+          **clean})
+    return launches
+
+
+def host_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+@torch.no_grad()
+def phase_kv_spill(dev: torch.device) -> int:
+    """qwen1.5-0.5b's per-layer K/V at a long context through the engine:
+    attention over the pool, every sequence spilled (donors round-robin)
+    and fetched back in another order, attention again over the new
+    tables; returns the paged kernel's launches in this phase."""
+    cfg = get_config(ARCH)
+    H, Kh, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    (B, S, T), R = LONG_DECODE, 4          # the paged_long row's pool
+    features, per_seq = 2 * Kh * D, S // T
+    pool_pages = B * per_seq + R - 1
+    page_bytes = T * features * 2
+    # 3 donors of 256 MiB, the heap arena sized for one whole-pool spill
+    spec = box.ClusterSpec(num_donors=3, donor_pages=1 << 16,
+                           heap_pages=pool_pages * -(-page_bytes // box.PAGE_SIZE),
+                           replication=2, nic_scale=2e-8)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    t0 = time.perf_counter()
+    session = box.open(spec, device=dev)
+    open_s = time.perf_counter() - t0
+    try:
+        kv = session.kv_store(num_pages=pool_pages, page_tokens=T, kv_features=features,
+                              dtype=torch.bfloat16)
+        for b in range(B):
+            kv.add_sequence(b, S)
+        # the "kernel" that writes the pool: no synchronize before the spill
+        kv.pool.normal_(generator=gen)
+        pool = kv.pool.view(pool_pages, T, 2, Kh, D)
+        q = torch.randn(B, H, D, generator=gen, device=dev).bfloat16()
+        lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+
+        def attention():
+            table = np.array([kv.tables[b] for b in range(B)], np.int32)
+            return table, pa.paged_attention(q, pool, table, lengths, pages_per_block=R)
+
+        reset_launches()
+        table0, out0 = attention()
+        before = [kv.gather(b).clone() for b in range(B)]
+        nbytes = B * per_seq * page_bytes
+        spill_ms = host_ms(lambda: [kv.spill(b) for b in range(B)])
+        if kv.alloc.free_count != pool_pages:
+            raise AssertionError(f"after the spill {pool_pages - kv.alloc.free_count} "
+                                 "pool pages are still held")
+        # the last two come back to each other's pages, the rest to their own
+        order = list(range(B - 2)) + [B - 1, B - 2]
+        fetch_ms = host_ms(lambda: [kv.fetch(b) for b in order])
+        table1, out1 = attention()
+        launches = pa.launches
+        exact = [same_bytes(kv.gather(b), before[b]) for b in range(B)]
+        if not all(exact):
+            raise AssertionError(f"kv_spill: gathers not byte-exact: {exact}")
+        same = [bool((table0[b] == table1[b]).all()) for b in range(B)]
+        plain = pa.paged_attention_plain(q, pool, *pa.upload_plan(table1, R, dev), lengths,
+                                         pages_per_block=R)
+        errs = []
+        for b in range(B):
+            if same[b]:
+                if not same_bytes(out1[b], out0[b]):
+                    raise AssertionError(f"kv_spill: sequence {b}'s attention changed")
+                errs.append(0.0)
+            else:
+                errs.append(max_err(out1[b], plain[b], PAGED_TOL[torch.bfloat16],
+                                    f"kv_spill sequence {b} vs plain"))
+        stats = session.stats()
+        clean = check_engine_clean(stats, "kv_spill")
+        # the copy engine's yardstick: one plain copy_ of the same bytes
+        # between the card and pinned host memory, each way
+        flat = kv.pool[: B * per_seq].reshape(-1).view(torch.uint8)
+        host = torch.empty(flat.numel(), dtype=torch.uint8,
+                           pin_memory=dev.type == "cuda")
+        d2h_ms = host_ms(lambda: host.copy_(flat))
+        h2d_ms = host_ms(lambda: flat.copy_(host))
+        # the engine's own copy pattern without the engine: one copy_ a
+        # pool page (64 KB), then one wait, as a merged WQE's copies run
+        pages_d2h_ms = host_ms(lambda: copy_parts(
+            zip(host.view(-1, page_bytes), flat.view(-1, page_bytes))))
+    finally:
+        session.close()
+    client = stats["client"]["0"]["box"]
+    nic = stats["nic"][str(session.clients[0])]
+    emit({"phase": "kv_spill", "arch": ARCH, "seqs": B, "tokens": S, "page_tokens": T,
+          "kv_features": features, "dtype": "bf16", "pool_pages": pool_pages,
+          "pool_mib": kv.pool.numel() * 2 / 2**20, "moved_bytes": nbytes,
+          "spec": spec.to_dict(), "open_s": open_s,
+          "nic_scale": spec.nic_scale,
+          "spill_s": spill_ms / 1e3, "spill_gb_s": nbytes / spill_ms / 1e6,
+          "fetch_s": fetch_ms / 1e3, "fetch_gb_s": nbytes / fetch_ms / 1e6,
+          "copy_d2h_gb_s": nbytes / d2h_ms / 1e6, "copy_h2d_gb_s": nbytes / h2d_ms / 1e6,
+          "copy_per_page_d2h_gb_s": nbytes / pages_d2h_ms / 1e6,
+          "requests_submitted": client["merge"]["submitted"], "rdma_ops": nic["rdma_ops"],
+          "merge_ratio": client["merge"]["submitted"] / max(1, nic["rdma_ops"]),
+          "merge": client["merge"], "poll": {x: client["poll"][x] for x in
+                                             ("handled", "wakeups", "poll_calls")},
+          "paged_launches": launches, "tables_same": same, "max_abs_err": errs,
+          "gathers_exact": exact, **clean})
+    return launches
 
 
 def ssd_work(B: int, L: int, H: int, P: int, N: int, K: int) -> tuple[int, int]:
@@ -761,7 +940,11 @@ def main() -> None:
     launches["ssd_scan"] = served["launches"]["ssd_scan"]
     del served
     torch.cuda.empty_cache()
-    phase_kernels(dev, main_err, launches)
+    phase_serve_spill()
+    torch.cuda.empty_cache()
+    kv_spill_launches = phase_kv_spill(dev)
+    torch.cuda.empty_cache()
+    phase_kernels(dev, main_err, launches, kv_spill_launches)
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

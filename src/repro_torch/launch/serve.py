@@ -15,28 +15,50 @@ downloaded.
       --batch 4 --prompt-len 512 --gen 256
 
 ``--device cpu`` runs the plain PyTorch versions of the kernels instead.
-The remote-KV tier (``--spill``) and the fabric flags need the RDMAbox
-engine, which is not ported yet (ROADMAP item 8); they are refused.
+
+``--spill`` adds the reference's remote-KV tier: a ``kv_store`` of
+``box.open(spec, device=--device)`` (its pool on the device, donor memory
+pinned on the host) takes one row of KV features per sequence and decode
+step, then spills sequence 0 to the donors and fetches it back over the
+simulated fabric, while ``--clients`` − 1 background pagers contend for
+the same donors. The fabric flags (``--donors``, ``--clients``,
+``--replication``, ``--link-*``, ``--straggler``) only take effect with it.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+      --spill --donors 3 --replication 2 --clients 2
 """
 
 from __future__ import annotations
 
 import argparse
+import threading
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Union
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import box, resolve_device
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.kernels.paged_attention.ops import descriptor_stats
 from repro_torch.models import PagedKVPool, SSMCache, Transformer, init_transformer
 
 PAGES_PER_BLOCK = 4
-ENGINE_FLAGS = ("spill", "donors", "clients", "replication", "link_latency_us",
-                "link_gbps", "straggler")
+# pages reserved per client for the KV spill arena (the heap slice of
+# each donor region); the rest of the slice backs background paging
+KV_HEAP_PAGES = 1024
+KV_FEATURES = 64
+BG_PAGES = 64
+
+
+@dataclass
+class SpillResult:
+    kv: box.KVStore                # the kv_store, sequence 0 fetched back
+    table: np.ndarray              # its page table before the spill
+    seq0_before: torch.Tensor      # sequence 0's gather before the spill
+    stats: Dict                    # the session's stats tree after the fetch
+    bg_rates: Dict[int, float]     # background client → pages/s
 
 
 @dataclass
@@ -49,6 +71,7 @@ class ServeResult:
     generated: np.ndarray          # (B, gen) greedy continuation
     prefill_s: float               # host clock, ends in a device sync
     decode_s: float
+    spill: Optional[SpillResult] = None
 
 
 def _sync(device: torch.device) -> None:
@@ -65,24 +88,111 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--page-tokens", type=int, default=16)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    # the reference's remote-KV and fabric surface: refused until ported
-    ap.add_argument("--spill", action="store_true", help=argparse.SUPPRESS)
-    for flag in ("--donors", "--clients", "--replication", "--link-latency-us",
-                 "--link-gbps", "--straggler"):
-        ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--spill", action="store_true",
+                    help="spill finished sequences' KV to remote memory")
+    # fabric topology + degraded-mode scenario surface
+    ap.add_argument("--donors", type=int, default=2,
+                    help="donor nodes in the remote-memory fabric")
+    ap.add_argument("--clients", type=int, default=1,
+                    help="client endpoints sharing the donor fabric; "
+                         "extra clients run a background paging workload "
+                         "contending with the serving client")
+    ap.add_argument("--replication", type=int, default=2)
+    ap.add_argument("--link-latency-us", type=float, default=1.0,
+                    help="per-link propagation delay (virtual us)")
+    ap.add_argument("--link-gbps", type=float, default=None,
+                    help="per-link bandwidth cap (default: NIC port only)")
+    ap.add_argument("--straggler", type=str, default=None, metavar="NODE:X",
+                    help="make donor NODE a straggler with latency xX")
     return ap
+
+
+def _fabric_faults(ap: argparse.ArgumentParser, args) -> Optional[list]:
+    """The reference's rule: fabric flags only take effect with --spill;
+    ``--straggler NODE:X`` becomes one slow-donor fault."""
+    fabric_flags = (args.straggler is not None or args.link_gbps is not None
+                    or args.link_latency_us != 1.0 or args.donors != 2
+                    or args.replication != 2 or args.clients != 1)
+    if fabric_flags and not args.spill:
+        ap.error("fabric flags (--donors/--clients/--replication/--link-*/"
+                 "--straggler) only take effect with --spill")
+    if not args.straggler:
+        return None
+    try:
+        node, factor = args.straggler.split(":")
+        return [{"kind": "slow", "node": int(node), "factor": float(factor)}]
+    except ValueError:
+        ap.error(f"--straggler expects NODE:FACTOR (e.g. 1:30), "
+                 f"got {args.straggler!r}")
+
+
+def _open_kv_store(args, faults, device: torch.device):
+    spec = box.ClusterSpec(
+        num_donors=args.donors, donor_pages=1 << 14,
+        replication=args.replication,
+        num_clients=args.clients,
+        heap_pages=min(KV_HEAP_PAGES, (1 << 14) // args.clients // 2),
+        link={"latency_us": args.link_latency_us, "gbps": args.link_gbps},
+        faults=faults)
+    session = box.open(spec, device=device)
+    kv = session.kv_store(num_pages=256, page_tokens=args.page_tokens,
+                          kv_features=KV_FEATURES)
+    for b in range(args.batch):
+        kv.add_sequence(b)
+    return session, kv
+
+
+def _spill_and_fetch(session, kv, clients: int,
+                     device: torch.device) -> SpillResult:
+    """Spill sequence 0 to the donors and fetch it back while the extra
+    clients page to the same donors — the reference's multi-client
+    scenario — and print the reference's lines."""
+    B = len(kv.tables)
+    Pmax = max(len(v) for v in kv.tables.values())
+    table = -np.ones((B, Pmax), np.int32)
+    for b in range(B):
+        table[b, : len(kv.tables[b])] = kv.tables[b]
+    print("page-run coalescing:", descriptor_stats(table, PAGES_PER_BLOCK))
+    bg_rates: Dict[int, float] = {}
+
+    def bg_pager(idx: int) -> None:
+        pager = session.pager(idx)
+        # per-thread generator: np.random.Generator is not thread-safe
+        r = np.random.default_rng(idx)
+        buf = torch.from_numpy(r.integers(0, 255, 4096).astype(np.uint8)).to(device)
+        t0 = time.perf_counter()
+        for pid in range(BG_PAGES):
+            pager.swap_out(pid, buf, wait=True)
+        bg_rates[idx] = BG_PAGES / (time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=bg_pager, args=(i,))
+               for i in range(1, clients)]
+    for t in threads:
+        t.start()
+    seq0_before = kv.gather(0).clone()
+    kv.spill(0)
+    kv.fetch(0)
+    for t in threads:
+        t.join()
+    if len(bg_rates) != len(threads):
+        raise RuntimeError("a background client failed (see its traceback)")
+    st = session.stats()
+    serving_nic = st["nic"][str(session.clients[0])]
+    merge = st["client"]["0"]["box"]["merge"]
+    print(f"spill/fetch: {serving_nic['rdma_ops']} RDMA ops, "
+          f"merge drains {merge['drains']}")
+    if bg_rates:
+        print("background clients (pages/s under contention):",
+              {session.clients[i]: f"{r:,.0f}" for i, r in sorted(bg_rates.items())})
+        print("donor-side per-client service:", st["fabric"]["service"])
+    return SpillResult(kv, table, seq0_before, st, bg_rates)
 
 
 @torch.no_grad()
 def main(argv: Optional[List[str]] = None) -> ServeResult:
     ap = _parser()
     args = ap.parse_args(argv)
-    given = [f"--{f.replace('_', '-')}" for f in ENGINE_FLAGS
-             if getattr(args, f) not in (None, False)]
-    if given:
-        ap.error(f"{' '.join(given)}: the remote-KV tier and its fabric need "
-                 "the RDMAbox engine, which repro_torch has not ported yet "
-                 "(ROADMAP item 8)")
+    faults = _fabric_faults(ap, args)
     if args.gen < 1:
         ap.error("--gen must be at least 1")
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
@@ -99,6 +209,9 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
         rng.integers(0, cfg.vocab_size, (B, args.prompt_len))).to(device)
     cache = model.init_cache(B, S, page_tokens=args.page_tokens,
                              pages_per_block=PAGES_PER_BLOCK)
+    session = kv = None
+    if args.spill:
+        session, kv = _open_kv_store(args, faults, device)
 
     _sync(device)
     t0 = time.perf_counter()
@@ -117,6 +230,13 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
         step_logits.append(logits)
         tok = logits[:, : cfg.vocab_size].argmax(dim=-1)
         cur += 1
+        if kv is not None:
+            kv_rows = torch.from_numpy(
+                rng.normal(size=(B, KV_FEATURES)).astype(np.float32))
+            if device.type == "cuda":   # from pinned memory: no host sync
+                kv_rows = kv_rows.pin_memory().to(device, non_blocking=True)
+            for b in range(B):
+                kv.append_tokens(b, kv_rows[b : b + 1])
     _sync(device)
     decode_s = time.perf_counter() - t0
     print(f"decode {args.gen} steps × {B} seqs: "
@@ -125,13 +245,19 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
     fed_t = torch.stack(fed, dim=1)
     generated = torch.cat([fed_t[:, 1:], tok[:, None]], dim=1).cpu().numpy()
     print("sample continuation token ids:", generated[0, :16].tolist())
-    if isinstance(cache, PagedKVPool):
+    spill = None
+    if kv is not None:
+        try:
+            spill = _spill_and_fetch(session, kv, args.clients, device)
+        finally:
+            session.close()
+    elif isinstance(cache, PagedKVPool):
         print("page-run coalescing:",
               descriptor_stats(cache.page_table, PAGES_PER_BLOCK))
     print("SERVING DONE")
     return ServeResult(model, cache, prompts, fed_t,
                        torch.stack(step_logits, dim=1), generated, prefill_s,
-                       decode_s)
+                       decode_s, spill)
 
 
 if __name__ == "__main__":

@@ -81,12 +81,47 @@ def test_serve_ssm_refuses_a_prompt_off_the_chunk(capsys):
     assert "seq_len must be a multiple of ssm_chunk" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flags", [["--spill"], ["--donors", "3"],
-                                   ["--clients", "2"], ["--straggler", "1:30"]])
-def test_serve_refuses_the_engine_flags(flags, capsys):
+@pytest.mark.parametrize("flags", [["--donors", "3"], ["--clients", "2"],
+                                   ["--straggler", "1:30"]])
+def test_serve_fabric_flags_need_spill(flags, capsys):
+    """The reference's rule (src/repro/launch/serve.py): the fabric flags
+    only take effect with --spill, and say so."""
     with pytest.raises(SystemExit):
         serve.main(CPU_ARGS + flags)
-    assert "ROADMAP item 8" in capsys.readouterr().err
+    assert ("fabric flags (--donors/--clients/--replication/--link-*/"
+            "--straggler) only take effect with --spill") in capsys.readouterr().err
+
+
+def test_serve_spill_prints_the_reference_lines(capsys):
+    """--spill on the CPU: a kv_store on the device takes one row a
+    sequence and step, sequence 0 spills and comes back byte-exact while a
+    second client pages to the same donors, and the lines are the
+    reference's, with page-run coalescing equal to its planner's."""
+    ref_ops = pytest.importorskip("repro.kernels.paged_attention.ops")
+    res = serve.main(CPU_ARGS + ["--spill", "--donors", "3", "--replication", "2",
+                                 "--clients", "2", "--straggler", "1:30"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[-1] == "SERVING DONE" and len(out) == 8
+    sp = res.spill
+    kv = sp.kv
+    assert kv.pool.device == torch.device("cpu")
+    # 6 decode steps × 3 sequences of one row each, appended in turn:
+    # pages of 4 tokens interleave, 2 pages a sequence
+    assert [kv.lengths[b] for b in range(3)] == [6, 6, 6]
+    assert sp.table.tolist() == [[0, 3], [1, 4], [2, 5]]
+    stats = ast.literal_eval(out[3].removeprefix("page-run coalescing: "))
+    assert stats == ref_ops.descriptor_stats(sp.table, 4)
+    assert stats == {"pages": 6, "descriptors": 6, "reduction": 1.0}
+    assert re.fullmatch(r"spill/fetch: \d+ RDMA ops, merge drains \d+", out[4])
+    ops, drains = map(int, re.findall(r"\d+", out[4]))
+    assert ops == sp.stats["nic"]["0"]["rdma_ops"] and ops >= 2
+    assert drains == sp.stats["client"]["0"]["box"]["merge"]["drains"]
+    assert out[5].startswith("background clients (pages/s under contention): {1: ")
+    service = ast.literal_eval(out[6].removeprefix("donor-side per-client service: "))
+    assert set(service) == {2, 3, 4} and all(1 in v for v in service.values())
+    assert sum(v[1]["ops"] for v in service.values()) == 2 * 64   # r 2 × 64 pages
+    assert torch.equal(kv.gather(0), sp.seq0_before)
+    assert kv.gather(0).shape == (6, serve.KV_FEATURES)
 
 
 def test_serve_on_gpu_goes_through_both_kernels():
