@@ -8,33 +8,46 @@ Phases, each printing one JSON line:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: compile every ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a, one
    nvcc per source, all started together;
-3. kernels vs plain: each CUDA kernel against its plain PyTorch version on the
+3. model: the analytic backend's calibration against the threaded engine
+   (``repro_torch.model.run_calibration``) at the reference suite's point, 4
+   clients, 2 donors, 1 worker, paced 1-page writes, with the clients' buffers
+   on the card: model/measured throughput and mean latency within ±0.35, no
+   predicted saturation, no admission shrink; the same point once more on
+   CPU buffers beside it, held the same way; the real time of one engine
+   write from each device. A wall-clock measurement, so it runs first, in a
+   process that has served no model yet;
+4. examples: the four example twins (``repro_torch.examples``) with
+   ``--device cuda``, in this process, each ending on its OK line;
+   ``serve_paged`` (reduced qwen1.5-0.5b, --spill) launches flash and paged
+   attention; ``capacity_plan`` starts no thread and prints the same plan as
+   on the CPU;
+5. kernels vs plain: each CUDA kernel against its plain PyTorch version on the
    card, at the reference suite's shapes and at the serving shapes (flash
    attention also at a causal prompt of 4096 tokens; paged attention also at
    its edge cases and at 8192 tokens of context);
-4. serve: ``repro_torch.launch.serve.main`` at full width (qwen1.5-0.5b, batch 4,
+6. serve: ``repro_torch.launch.serve.main`` at full width (qwen1.5-0.5b, batch 4,
    prompt 64, 32 decode steps) with every kernel's launch count reset just
    before and read just after; the decode logits against one forward pass over
    prompt + generated tokens;
-5. profile: device time by kernel over 8 decode steps (torch.profiler);
-6. serve_ssm: the same for mamba2-780m at full width (batch 4, prompt 512 = two
+7. profile: device time by kernel over 8 decode steps (torch.profiler);
+8. serve_ssm: the same for mamba2-780m at full width (batch 4, prompt 512 = two
    scan chunks of 256, 256 decode steps), through the SSD chunk-scan kernel;
-7. profile_ssm: device time by kernel for one mamba2 prefill and 8 decode steps;
-8. ssm_f32: the decode-vs-forward bound for mamba2 on an f32 copy of the served
+9. profile_ssm: device time by kernel for one mamba2 prefill and 8 decode steps;
+10. ssm_f32: the decode-vs-forward bound for mamba2 on an f32 copy of the served
    weights, over the served tokens (in bf16 the random full-width model
    amplifies rounding past the bound, the JAX reference as much as the port);
-9. serve_spill: qwen1.5-0.5b at full width again, with ``--spill --donors 3
+11. serve_spill: qwen1.5-0.5b at full width again, with ``--spill --donors 3
    --replication 2 --clients 2``: the ``kv_store`` on the card, donor memory
    pinned on the host; sequence 0's gather byte-exact after its spill and fetch,
    the same kernel launches as ``serve``, no failed transfer, struck donor or
    disk access;
-10. kv_spill: a long-context pool through the RDMAbox engine: qwen1.5-0.5b's
+12. kv_spill: a long-context pool through the RDMAbox engine: qwen1.5-0.5b's
    per-layer K/V (2·16·64 bf16 features, 4 KB a token) for 4 sequences of 8192
    tokens in pages of 16 (2048 + 3 pages, 128 MiB on the card) held as a
    ``kv_store``; paged attention over it, every sequence spilled to 3 donors
    and fetched back, paged attention again; spill and fetch rates beside one
    plain ``copy_`` of the same bytes to pinned memory and back;
-11. kernels: each kernel's time at the serving shapes (CUDA-graph replay, so no
+13. kernels: each kernel's time at the serving shapes (CUDA-graph replay, so no
    host gaps), its plain version's, the bound of the card, and a library call's;
    flash attention also at a causal prompt of 4096 tokens, paged attention also
    at 8192 tokens of context (planned at R = 4 and R = 1) and at several split
@@ -46,10 +59,13 @@ script exits non-zero; without a CUDA device it fails before printing anything.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -70,6 +86,7 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa:
 from repro_torch.kernels.ssd_scan import ops as ssd  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.model import ModelWorkload, run_calibration  # noqa: E402
 
 # NVIDIA H100 SXM data sheet, dense rates at the 700 W limit. f32-accurate
 # products are not bound by the 67 TFLOP/s of the f32 CUDA cores: split into
@@ -908,6 +925,141 @@ def phase_kv_spill(dev: torch.device) -> int:
     return launches
 
 
+# tests/test_model.py's calibration point, verbatim: PU-heavy costs at a
+# coarse clock (1 virtual µs = 4 real µs) so the pacers really sleep
+CALIBRATION_SPEC = dict(
+    num_donors=2, num_clients=4, donor_pages=4096, replication=1,
+    serve_workers=1, nic_scale=4e-6, admission="congestion",
+    nic_cost={"wqe_proc_us": 400.0, "wire_us_per_page": 5.0,
+              "mmio_us": 0.3, "completion_dma_us": 0.5,
+              "reg_kernel_us": 0.12, "dma_read_us": 0.5})
+CALIBRATION_WORKLOAD = dict(client_ops_per_s=500.0, read_fraction=0.0, pages_per_op=1)
+CALIBRATION_BAND = 0.35
+CALIBRATION_OPS = 48
+
+
+def one_write_us(device: str, n: int = 256) -> float:
+    """Real µs of one 1-page engine write and its wait, from a buffer on
+    ``device`` (a near-zero clock, so the time is the byte move's own)."""
+    spec = box.ClusterSpec(num_donors=1, donor_pages=1024, replication=1, nic_scale=2e-8)
+    with box.open(spec, device=device) as s:
+        eng, donor = s.engine(0), s.donors[0]
+        page = torch.zeros(box.PAGE_SIZE, dtype=torch.uint8, device=s.device)
+        for k in range(16):
+            eng.write(donor, k, page).wait(30)
+        t0 = time.perf_counter()
+        for k in range(n):
+            eng.write(donor, k % 512, page).wait(30)
+        return (time.perf_counter() - t0) / n * 1e6
+
+
+def phase_model() -> None:
+    """The analytic backend against the threaded engine, card then CPU
+    buffers, at the reference's calibration point and band."""
+    t_phase = time.perf_counter()
+    spec = box.ClusterSpec(**CALIBRATION_SPEC)
+    wl = ModelWorkload(**CALIBRATION_WORKLOAD)
+    rows, failed = {}, []
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        r = run_calibration(spec, wl, ops_per_client=CALIBRATION_OPS, device=device)
+        secs = time.perf_counter() - t0
+        print(f"model calibration on {device}: {r.agreement()}; "
+              f"p99 model/measured {r.model_p99_us:.1f}/{r.measured_p99_us:.1f} us; "
+              f"{secs:.3f} s")
+        rows[device] = {
+            "throughput_ratio": r.throughput_ratio, "latency_ratio": r.latency_ratio,
+            "model_ops_per_s": r.model_ops_per_s, "measured_ops_per_s": r.measured_ops_per_s,
+            "model_mean_us": r.model_mean_us, "measured_mean_us": r.measured_mean_us,
+            "model_p99_us": r.model_p99_us, "measured_p99_us": r.measured_p99_us,
+            "model_saturated": r.model_saturated, "measured_shrinks": r.measured_shrinks,
+            "seconds": secs}
+        if not (r.within(CALIBRATION_BAND) and not r.model_saturated
+                and r.measured_shrinks == 0):
+            failed.append(f"{device}: {r.agreement()}")
+    moves = {device: one_write_us(device) for device in ("cuda", "cpu")}
+    wall = time.perf_counter() - t_phase
+    print(f"model phase: {wall:.3f} s")
+    emit({"phase": "model", "band": CALIBRATION_BAND, "ops_per_client": CALIBRATION_OPS,
+          "spec": spec.to_dict(), "workload": wl.to_dict(), "calibration": rows,
+          "one_write_real_us": moves, "seconds": wall})
+    if failed:
+        raise AssertionError(f"calibration outside ±{CALIBRATION_BAND}, saturated or "
+                             f"shrunk: {failed}")
+
+
+def run_captured(fn, argv: list) -> tuple[object, str, float]:
+    """``fn(argv)`` with its standard output captured (and echoed)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = fn(argv)
+    finally:
+        sys.stdout.write(buf.getvalue())
+    return res, buf.getvalue(), time.perf_counter() - t0
+
+
+def ends_with(out: str, line: str, what: str) -> None:
+    if not out.rstrip().endswith(line):
+        raise AssertionError(f"{what}: did not end on {line!r}")
+
+
+@torch.no_grad()
+def phase_examples() -> None:
+    """The example twins on the card, in this process."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.examples import capacity_plan, quickstart, remote_paging_demo, serve_paged
+    t_phase = time.perf_counter()
+    cuda = ["--device", "cuda"]
+    seconds = {}
+    res, out, seconds["quickstart"] = run_captured(quickstart.main, cuda)
+    ends_with(out, "QUICKSTART OK", "quickstart")
+    paging, out, seconds["remote_paging_demo"] = run_captured(remote_paging_demo.main, cuda)
+    ends_with(out, "REMOTE PAGING DEMO OK", "remote_paging_demo")
+
+    cfg = get_reduced(ARCH)
+    reset_launches()
+    served, out, seconds["serve_paged"] = run_captured(serve_paged.main, cuda)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    ends_with(out, "SERVING DONE", "serve_paged")
+    gen = served.decode_logits.shape[1]
+    want = {"flash_attention": cfg.num_layers, "paged_attention": cfg.num_layers * gen,
+            "ssd_scan": 0}
+    if launches != want or not launches["paged_attention"]:
+        raise AssertionError(f"serve_paged launches {launches}, want {want}")
+    if served.spill is None or served.spill.kv.pool.device.type != "cuda" or not same_bytes(
+            served.spill.kv.gather(0), served.spill.seq0_before):
+        raise AssertionError("serve_paged: the spilled sequence did not come back exact")
+    if not torch.isfinite(served.decode_logits.float()).all():
+        raise AssertionError("serve_paged: non-finite decode logits")
+    del served
+
+    threads = threading.active_count()
+    plan, out, seconds["capacity_plan"] = run_captured(capacity_plan.main, cuda)
+    if threading.active_count() != threads:
+        raise AssertionError(f"capacity_plan started threads: {threads} -> "
+                             f"{threading.active_count()}")
+    _, cpu_out, _ = run_captured(capacity_plan.main, ["--device", "cpu"])
+    if out != cpu_out:
+        raise AssertionError("capacity_plan: card and CPU runs printed different plans")
+    verdict = ("cheapest plan meeting the premium p99 target: 16 donors x 4 workers "
+               "(cost 68, predicted p99 35.9us <= 60.0us)")
+    ends_with(out, verdict, "capacity_plan")
+    wall = time.perf_counter() - t_phase
+    print(f"examples phase: {wall:.3f} s")
+    emit({"phase": "examples", "seconds": seconds, "phase_seconds": wall,
+          "serve_paged_launches": launches,
+          "paging": {k: paging[k] for k in ("hits", "faults", "evictions",
+                                             "readable_after_failure")},
+          "quickstart": res, "capacity_plan": {
+              "best": plan["best"], "cost": plan["cost"], "p99_us": plan["p99_us"],
+              "points": len(plan["rows"]),
+              "sweep_eval_ms": sum(r["eval_ms"] for r in plan["rows"]),
+              "threads_before_after": [threads, threading.active_count()]}})
+
+
 def ssd_work(B: int, L: int, H: int, P: int, N: int, K: int) -> tuple[int, int]:
     """(bytes, flops) of one SSD scan with the final state written.
 
@@ -928,6 +1080,9 @@ def main() -> None:
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
+    phase_model()
+    phase_examples()
+    torch.cuda.empty_cache()
     main_err = phase_compare(dev)
     served = phase_serve(dev)
     phase_profile(served["model"], served["prompts"])

@@ -25,11 +25,16 @@ hierarchy rooted at ``BoxError``; and a single composed stats tree with
 namespaces. The old entrypoints (``MemoryCluster`` et al.) survive as
 deprecation shims over this surface.
 
+``open(spec, backend="model")`` swaps the threaded simulator for the
+closed-form queueing-model evaluator (``ModelSession``; traffic via
+``workload=ModelWorkload(...)``) — same spec, same stats namespaces,
+milliseconds per topology, for capacity planning at cluster scale.
+
 The port of ``repro.box``. Buffers are torch ``uint8`` tensors (or byte
 views of any tensor): client-side buffers live on ``open``'s ``device``,
-donor memory on the host, pinned when that device is CUDA. The analytic
-``backend="model"`` is not ported yet (ROADMAP item 8(d)): ``open``
-raises ``BoxError`` for it.
+donor memory on the host, pinned when that device is CUDA. The model
+backend (``repro_torch.model``) computes on the host; ``open`` checks
+its ``device`` all the same, so one call fails alike on both backends.
 """
 
 from ..core.descriptors import PAGE_SIZE
@@ -40,6 +45,8 @@ from ..core.rdmabox import (
     TransferError,
     TransferFuture,
 )
+from ..model.session import ModelSession
+from ..model.workload import ModelWorkload
 from .handles import KVStore, Pager, RemoteBuffer, RemoteHeap, TensorStore
 from .policies import create_policy, policy_names, register_policy
 from .session import Session, open_session
@@ -57,6 +64,8 @@ __all__ = [
     "ClosedError",
     "ClusterSpec",
     "KVStore",
+    "ModelSession",
+    "ModelWorkload",
     "PAGE_SIZE",
     "Pager",
     "PolicySpec",

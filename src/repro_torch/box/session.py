@@ -432,7 +432,7 @@ class Session:
 
 def open_session(spec: Union[None, str, Dict[str, Any], ClusterSpec] = None,
                  device: Union[str, torch.device] = "cuda", **kwargs: Any):
-    """Build a session from a declarative spec.
+    """Build a session from a declarative spec, on either backend.
 
     ``spec`` may be a ``ClusterSpec``, a plain dict, a JSON string, or
     None (defaults). Extra keyword arguments override spec fields
@@ -440,19 +440,27 @@ def open_session(spec: Union[None, str, Dict[str, Any], ClusterSpec] = None,
     imperative objects straight to ``Session`` for legacy/advanced use.
 
     ``device`` (not a spec field, so one spec's JSON opens in both
-    packages) goes through ``repro_torch.resolve_device``: without a GPU
-    it raises unless the caller passes ``"cpu"``. Client-side buffers
-    live there; donor memory stays on the host, pinned for CUDA.
+    packages) goes through ``repro_torch.resolve_device`` for both
+    backends: without a GPU it raises unless the caller passes
+    ``"cpu"``. Client-side buffers live there; donor memory stays on
+    the host, pinned for CUDA. The model backend computes on the host
+    and holds no buffer, so it only checks the device.
 
     ``spec.backend`` (or ``backend=`` as an override) selects the
-    execution backend. ``"sim"`` starts the threaded simulator and
-    returns a ``Session``; the analytic ``"model"`` backend is not
-    ported yet (ROADMAP item 8(d)).
+    execution backend: ``"sim"`` starts the threaded simulator and
+    returns a ``Session``; ``"model"`` evaluates the spec analytically
+    and returns a ``ModelSession`` (``workload=`` then describes the
+    offered traffic) without starting a thread or allocating a tensor.
+    Escape hatches carrying imperative objects the analytic backend
+    cannot honor (``fault_plan``, ``box_config``, ``disk``,
+    ``admission_hook_factory``, ``app_handler``) raise ``BoxError``
+    rather than being silently ignored; ``link_config`` is honored
+    analytically.
 
     Raises:
-        BoxError: unknown ``backend``, ``backend="model"``, or
-            ``workload=`` with the sim backend (the simulator measures
-            traffic, it is not told one).
+        BoxError: unknown ``backend``, an escape hatch the selected
+            backend cannot honor, or ``workload=`` with the sim backend
+            (the simulator measures traffic, it is not told one).
         RuntimeError: a CUDA ``device`` and no GPU.
     """
     hatches = {k: kwargs.pop(k) for k in ESCAPE_HATCHES if k in kwargs}
@@ -465,16 +473,24 @@ def open_session(spec: Union[None, str, Dict[str, Any], ClusterSpec] = None,
             f"unknown backend {spec.backend!r}: valid backends are "
             f"'sim' (thread-per-NIC simulator) and 'model' (analytic "
             f"queueing-model evaluator)")
+    device = resolve_device(device)
     if spec.backend == "model":
-        raise BoxError(
-            "backend=\"model\" (the analytic queueing-model evaluator) is "
-            "not ported to repro_torch yet (ROADMAP item 8(d)); open with "
-            "backend=\"sim\"")
+        unsupported = sorted(set(hatches) - {"link_config"})
+        if unsupported:
+            raise BoxError(
+                f"escape hatch(es) {unsupported} carry imperative "
+                f"objects the model backend cannot honor — it is a "
+                f"closed-form evaluator with no live engines; open with "
+                f"backend=\"sim\", or express the scenario declaratively "
+                f"(spec.link / spec.write_through_disk / spec.admission)")
+        from ..model.session import ModelSession
+        return ModelSession(spec, workload=workload,
+                            link_config=hatches.get("link_config"))
     if workload is not None:
         raise BoxError(
             "workload= describes offered traffic to the model backend; "
             "the simulator measures what clients actually submit — drive "
-            "session.engine(i) instead")
+            "session.engine(i) instead, or open with backend=\"model\"")
     return Session(spec, device=device, **hatches)
 
 

@@ -233,7 +233,7 @@ class ClusterSpec:
     faults: Optional[List[Dict[str, Any]]] = None
     seed: int = 0
     # execution backend: "sim" = the thread-per-NIC simulator (default),
-    # "model" = the closed-form queueing-model evaluator (not ported yet)
+    # "model" = the closed-form queueing-model evaluator (repro_torch.model)
     backend: str = "sim"
     # policies, by registry name
     admission: PolicySpec = field(

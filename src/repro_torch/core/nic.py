@@ -568,13 +568,15 @@ class SimulatedNIC:
     @contextlib.contextmanager
     def _copy_scope(self, requests):
         """Run a byte move on this worker thread's own CUDA stream when a
-        client buffer lies on the card, ordered after each request's
-        ``ready`` event (the submitting thread's stream at submit). The
-        region's ``copy_parts`` waits for that stream before the stripe
-        locks drop, so a completion posted after the move means the
-        bytes have landed. Reads the NIC allocates a buffer for get it
-        here, on the current stream, before the move is ordered after
-        it. CPU-only moves run as they are."""
+        client buffer lies on the card, after each request's ``ready``
+        event (the submitting thread's stream at submit) has passed: the
+        host waits for it, so the copies, which keep the interpreter lock
+        until they have landed (``buffers.copy_parts``), never wait on
+        other work. The region's ``copy_parts`` waits for that stream
+        before the stripe locks drop, so a completion posted after the
+        move means the bytes have landed. Reads the NIC allocates a buffer
+        for get it here, on the current stream, before the move is
+        ordered after it. CPU-only moves run as they are."""
         cuda, allocated = None, False
         events = []
         for req in requests:
@@ -595,7 +597,7 @@ class SimulatedNIC:
         if allocated and self.device.type == "cuda":
             stream.wait_stream(torch.cuda.current_stream(cuda))
         for ev in events:
-            stream.wait_event(ev)
+            ev.synchronize()
         with torch.cuda.stream(stream):
             yield
 

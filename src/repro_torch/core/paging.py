@@ -50,7 +50,9 @@ from .rdmabox import BatchFuture, RDMABox, TransferFuture
 def _one_page(data: torch.Tensor, what: str) -> torch.Tensor:
     """``data``'s bytes as a flat view of exactly one page — a view of
     its bytes, never a cast of its values."""
-    buf = byte_view(data).reshape(-1)
+    buf = byte_view(data)
+    if buf.dim() != 1:                  # a reshape can let the GIL go
+        buf = buf.reshape(-1)
     if buf.numel() != PAGE_SIZE:
         raise ValueError(f"{what} takes exactly one page ({PAGE_SIZE} "
                          f"bytes), got {buf.numel()}")

@@ -14,6 +14,11 @@ instead of serializing on one whole-region lock. The vectorized entry
 points (``writev``/``readv``) take the union of their parts' stripes once,
 so a merged multi-run descriptor pays a single lock round trip.
 
+Bytes move by address (``buffers.ByteSpan``), never through a sliced
+view of the region: slicing a tensor can let the interpreter lock go,
+and a donor worker that lets it go waits for it behind every other
+engine thread.
+
 Hot-page cache tier (RDCA-style last mile): a donor region may carry a
 bounded ``CacheTier`` mirroring its hottest pages — the model of
 SmartNIC/LLC-resident data the receive side can serve without touching
@@ -34,7 +39,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from .buffers import copy_parts, host_bytes
+from .buffers import ByteSpan, copy_parts, host_bytes
 from .descriptors import PAGE_SIZE
 
 
@@ -45,6 +50,14 @@ class RemoteAccessError(IndexError, KeyError):
     host-side bug) reaches the caller as itself. An ``IndexError`` and a
     ``KeyError``, so callers of the region and the directory catch it as
     they would the reference's."""
+
+
+def _page(t: torch.Tensor, k: int):
+    """Page ``k`` of a buffer of whole pages: a span of a contiguous one,
+    else a row of its page view."""
+    if t.is_contiguous():
+        return ByteSpan(t, k * PAGE_SIZE, PAGE_SIZE)
+    return t.reshape(-1, PAGE_SIZE)[k]
 
 
 class RemoteRegion:
@@ -69,6 +82,9 @@ class RemoteRegion:
         # Duck-typed to keep region <- registration import-free; same
         # lock-order invariant as the tier: region stripes -> mr lock.
         self.mr = None
+
+    def _span(self, page: int, num_pages: int) -> ByteSpan:
+        return ByteSpan(self._mem, page * PAGE_SIZE, num_pages * PAGE_SIZE)
 
     # ---- striped locking -------------------------------------------------
     def _stripes_of(self, page: int, num_pages: int) -> range:
@@ -96,7 +112,7 @@ class RemoteRegion:
         stripes = list(self._stripes_of(page, n))
         self._acquire(stripes)
         try:
-            copy_parts([(self._mem[page : page + n], data)])
+            copy_parts([(self._span(page, n), data)])
             if self.cache is not None:
                 self.cache.on_write([(page, data, n)])
         finally:
@@ -116,7 +132,7 @@ class RemoteRegion:
         stripes = list(self._stripes_of(page, num_pages))
         self._acquire(stripes)
         try:
-            copy_parts([(out, self._mem[page : page + num_pages])])
+            copy_parts([(out, self._span(page, num_pages))])
         finally:
             self._release(stripes)
 
@@ -134,7 +150,7 @@ class RemoteRegion:
         ordered = sorted(stripes)
         self._acquire(ordered)
         try:
-            copy_parts((self._mem[page : page + n], data)
+            copy_parts((self._span(page, n), data)
                        for page, data, n in sizes)
             if self.cache is not None:
                 self.cache.on_write(sizes)
@@ -154,7 +170,7 @@ class RemoteRegion:
         ordered = sorted(stripes)
         self._acquire(ordered)
         try:
-            copy_parts((out, self._mem[page : page + n])
+            copy_parts((out, self._span(page, n))
                        for page, n, out in parts)
         finally:
             self._release(ordered)
@@ -264,7 +280,11 @@ class CacheTier:
                 frames = [self._frame_of[page + k] for k in range(n)]
             except KeyError:
                 return False
-            copy_parts([(out, self._frames[frames])])
+            if out.is_contiguous():
+                copy_parts((_page(out, k), self._frame(f))
+                           for k, f in enumerate(frames))
+            else:
+                copy_parts([(out, self._frames[frames])])
             return True
 
     def promote(self, page: int) -> None:
@@ -281,13 +301,16 @@ class CacheTier:
                 if page in self._frame_of:
                     return
                 frame = self._victim_locked()
-                self._frames[frame].copy_(r._mem[page])
+                copy_parts([(self._frame(frame), r._span(page, 1))])
                 self._frame_of[page] = frame
                 self._page_of[frame] = page
                 self._ref[frame] = True     # one CLOCK sweep of grace
                 self._promotions += 1
         finally:
             r._release(stripes)
+
+    def _frame(self, frame: int) -> ByteSpan:
+        return ByteSpan(self._frames, frame * PAGE_SIZE, PAGE_SIZE)
 
     def _victim_locked(self) -> int:
         if self._free:
@@ -314,11 +337,10 @@ class CacheTier:
         with self._lock:
             through = []
             for page, data, n in sized_parts:
-                rows = data.reshape(n, PAGE_SIZE)
                 for k in range(n):
                     frame = self._frame_of.get(page + k)
                     if frame is not None:
-                        through.append((self._frames[frame], rows[k]))
+                        through.append((self._frame(frame), _page(data, k)))
                         self._write_throughs += 1
                     elif self._pending.pop(page + k, None) is not None:
                         self._invalidations += 1

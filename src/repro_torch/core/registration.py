@@ -52,7 +52,7 @@ from typing import Dict, List, Optional, Set, Tuple
 
 import torch
 
-from .buffers import byte_view, host_bytes
+from .buffers import ByteSpan, byte_view, copy_parts, host_bytes
 from .descriptors import PAGE_SIZE, TransferDescriptor
 from .errors import BoxError
 from .nic import NICCostModel
@@ -102,7 +102,7 @@ class StagingPool:
                         f"slab, or the pool is undersized for the load)")
                 self._cv.wait(remaining)
             slab = self._free.pop()
-        slab[: payload.nbytes].copy_(byte_view(payload).reshape(-1))
+        copy_parts([(ByteSpan(slab, 0, payload.nbytes), byte_view(payload))])
         return slab
 
     def release(self, slab: torch.Tensor) -> None:

@@ -32,6 +32,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import torch
 
 from .. import resolve_device
+from ..core.buffers import warm_up
 from ..core.nic import NICCostModel, ServiceConfig, SimulatedNIC
 from ..core.region import CacheConfig, RegionDirectory, RemoteRegion
 from ..core.registration import MRConfig
@@ -62,6 +63,8 @@ class Fabric:
         self.directory = directory or RegionDirectory()
         self.device = resolve_device(device)
         self.pin_memory = self.device.type == "cuda"
+        if self.pin_memory:
+            warm_up(self.device)
         self.cost = cost or NICCostModel()
         self.scale = scale
         self.kernel_space = kernel_space

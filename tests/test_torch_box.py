@@ -394,12 +394,10 @@ def test_session_never_warns_deprecation():
 
 
 # ---- public-surface guard (CI satellite) ----------------------------------
-# the reference's names minus ModelSession and ModelWorkload, which wait
-# for the analytic backend (ROADMAP item 8(d))
 EXPECTED_ALL = {
     "AllocError", "BatchFuture", "BatchTransferError", "BoxError",
-    "ClosedError", "ClusterSpec", "KVStore", "PAGE_SIZE", "Pager",
-    "PolicySpec", "RemoteBuffer",
+    "ClosedError", "ClusterSpec", "KVStore", "ModelSession",
+    "ModelWorkload", "PAGE_SIZE", "Pager", "PolicySpec", "RemoteBuffer",
     "RemoteHeap", "SLAClass", "Session", "TensorStore", "TransferError",
     "TransferFuture", "create_policy", "flatten_stats", "open",
     "policy_names", "register_policy",
@@ -431,9 +429,17 @@ def test_public_all_matches_documented_names():
 
 
 
-def test_open_refuses_the_model_backend():
-    with pytest.raises(box.BoxError, match=r"ROADMAP item 8\(d\)"):
-        box.open(small_spec(), backend="model", device="cpu")
+def test_open_dispatches_on_backend():
+    """Twin of ``tests/test_model.py::test_open_dispatches_on_backend``."""
+    spec = box.ClusterSpec(num_donors=4, num_clients=16, donor_pages=16384,
+                           replication=1, serve_workers=1, backend="model")
+    with box.open(spec, device="cpu") as s:
+        assert isinstance(s, box.ModelSession)
+    # override form, on top of a sim-backend spec
+    with box.open({"num_donors": 2, "replication": 1},
+                  backend="model", device="cpu") as s:
+        assert isinstance(s, box.ModelSession)
+        assert s.spec.num_donors == 2
 
 
 def test_fabric_nic_and_legacy_box_need_a_gpu_unless_cpu_is_asked():

@@ -5,9 +5,10 @@ Twins of ``tests/test_donor_service.py``, ``test_hot_cache.py``,
 ``test_slo.py``, ``test_mr_cache.py``, ``test_mr_prefetch.py`` and
 ``test_mr_replacement.py`` on ``repro_torch`` with torch ``uint8`` buffers
 on the CPU. Left without a twin (ROADMAP lists them): the tests whose
-assertion is a wall-clock skew or latency ratio, and the analytic
-``backend="model"`` case. Last, parity cases: one MR-cache trace and one
-hot-cache trace through both packages give the same counters.
+assertion is a wall-clock skew or latency ratio. The analytic
+``backend="model"`` case is in ``tests/test_torch_model.py``. Last,
+parity cases: one MR-cache trace and one hot-cache trace through both
+packages give the same counters.
 """
 
 import collections
@@ -1822,8 +1823,8 @@ def test_sequential_scan_prefetch_turns_faults_into_hits():
     assert on["prefetch"]["bg_pu_us"] > 0.0
 
 
-# (the calibration-band case runs the analytic backend, which waits for
-# ROADMAP item 8(d): no twin yet)
+# (the calibration-band case runs the analytic backend: its twin is in
+# tests/test_torch_model.py)
 
 
 # ---------------------------------------------------------------------------

@@ -944,3 +944,76 @@ def test_region_and_directory_faults_are_remote_access_errors():
     # callers that catch the reference's exceptions still catch them
     assert issubclass(RemoteAccessError, IndexError)
     assert issubclass(RemoteAccessError, KeyError)
+
+
+# ===========================================================================
+# the byte-move helper: every path copies the same bytes
+# ===========================================================================
+
+@pytest.mark.parametrize("case", ["contiguous", "strided", "reshaped",
+                                  "above_hold_gil", "several"])
+def test_copy_parts_moves_the_bytes_on_every_path(case):
+    """``copy_parts`` keeps the interpreter lock for small contiguous host
+    moves (``memmove``) and falls back to ``copy_`` for strided or large
+    ones; the bytes that land are the same either way."""
+    from repro_torch.core.buffers import HOLD_GIL_BYTES, copy_parts
+    rng = np.random.default_rng(3)
+    n = {"above_hold_gil": HOLD_GIL_BYTES + PAGE_SIZE,
+         "several": 4 * PAGE_SIZE}.get(case, 2 * PAGE_SIZE)
+    src = tb(rng.integers(0, 256, 2 * n, dtype=np.uint8))
+    dst = torch.zeros(2 * n, dtype=torch.uint8)
+    if case == "strided":
+        pairs = [(dst[:n], src[::2])]
+        want = [(slice(0, n), src[::2])]
+    elif case == "reshaped":
+        pairs = [(dst[:n].view(2, n // 2), src[:n])]
+        want = [(slice(0, n), src[:n])]
+    elif case == "several":
+        pairs = [(dst[k * PAGE_SIZE:(k + 1) * PAGE_SIZE],
+                  src[(7 - k) * PAGE_SIZE:(8 - k) * PAGE_SIZE]) for k in range(4)]
+        want = [(slice(k * PAGE_SIZE, (k + 1) * PAGE_SIZE),
+                 src[(7 - k) * PAGE_SIZE:(8 - k) * PAGE_SIZE]) for k in range(4)]
+    else:
+        pairs = [(dst[:n], src[n:])]
+        want = [(slice(0, n), src[n:])]
+    copy_parts(pairs)
+    end = max(w[0].stop for w in want)
+    for where, expect in want:
+        assert torch.equal(dst[where], expect)
+    assert not dst[end:].any()             # nothing past the parts was touched
+
+
+def test_gpu_copy_parts_between_card_and_host():
+    """On the card: device→pinned, pinned→device, device→pageable and a
+    strided device source, small (runtime calls with the lock held) and
+    above ``HOLD_GIL_BYTES`` (torch's ``copy_``); a ready event that
+    waits for kernels still running on the submitting stream, and none
+    once the stream is idle."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA byte moves")
+    from repro_torch.core.buffers import HOLD_GIL_BYTES, copy_parts, ready_event
+    dev = torch.device("cuda")
+    for n in (PAGE_SIZE, 3 * PAGE_SIZE, HOLD_GIL_BYTES + PAGE_SIZE):
+        src = torch.randint(0, 256, (2 * n,), dtype=torch.uint8, device=dev)
+        pinned = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+        pageable = torch.empty(n, dtype=torch.uint8)
+        back = torch.empty(n, dtype=torch.uint8, device=dev)
+        copy_parts([(pinned, src[:n]), (pageable, src[n:])])
+        copy_parts([(back, pinned)])
+        assert torch.equal(pinned, src[:n].cpu())
+        assert torch.equal(pageable, src[n:].cpu())
+        assert torch.equal(back, src[:n])
+        copy_parts([(pageable, src[::2])])
+        assert torch.equal(pageable, src[::2].cpu())
+    a = torch.randn(4096, 4096, device=dev)
+    for _ in range(4):
+        a = a @ a / 64.0                     # keep the stream busy
+    page = a.reshape(-1)[:PAGE_SIZE // 4].view(torch.uint8)
+    ev = ready_event([page])
+    assert ev is not None                   # the stream is still busy
+    ev.synchronize()                        # the host waits for the matmuls
+    out = torch.empty(PAGE_SIZE, dtype=torch.uint8, pin_memory=True)
+    copy_parts([(out, page)])
+    assert torch.equal(out, page.cpu())
+    torch.cuda.synchronize()
+    assert ready_event([page]) is None
