@@ -23,8 +23,10 @@ Phases, each printing one JSON line:
    on the CPU;
 5. kernels vs plain: each CUDA kernel against its plain PyTorch version on the
    card, at the reference suite's shapes and at the serving shapes (flash
-   attention also at a causal prompt of 4096 tokens; paged attention also at
-   its edge cases and at 8192 tokens of context);
+   attention also at a causal prompt of 4096 tokens, at deepseek's prefill at
+   head dim 192 and at hymba's, GQA 25/5 with a 1024-token window; paged
+   attention also at qwen2-moe's decode, D 128, at its edge cases and at 8192
+   tokens of context; the scan also at hymba's prefill, 50 heads, N 16);
 6. serve: ``repro_torch.launch.serve.main`` at full width (qwen1.5-0.5b, batch 4,
    prompt 64, 32 decode steps) with every kernel's launch count reset just
    before and read just after; the decode logits against one forward pass over
@@ -47,14 +49,31 @@ Phases, each printing one JSON line:
    ``kv_store``; paged attention over it, every sequence spilled to 3 donors
    and fetched back, paged attention again; spill and fetch rates beside one
    plain ``copy_`` of the same bytes to pinned memory and back;
-13. kernels: each kernel's time at the serving shapes (CUDA-graph replay, so no
+13. serve_archs: ``serve.main`` at full width for the other archs that fit one
+   card (rdmabox-paper-100m, musicgen-large with embedding inputs,
+   qwen2-moe-a2.7b, hymba-1.5b with a prompt of 1280 past its 1024-token
+   window, deepseek-v2-lite-16b through flash at D 192), each kernel's
+   launches reset just before and held to the arch's count just after; the
+   32-35 B dense archs and llava-next-34b (65-70 GB of bf16 weights) are not
+   served on the card;
+14. hybrid_decode: hymba at full width, prefill of 1280, 256 decode steps across
+   the ring's wrap, against one forward; held in f32, beside it bf16 through
+   the kernels and bf16 with flash and the scan swapped for their plain
+   versions, and each bf16 forward against the f32 one;
+15. mla_decode: deepseek at full width with every expert routed, prefill of 32
+   tokens and 32 absorbed decode steps against one forward; held and witnessed
+   as hymba is;
+16. kernels: each kernel's time at the serving shapes (CUDA-graph replay, so no
    host gaps), its plain version's, the bound of the card, and a library call's;
-   flash attention also at a causal prompt of 4096 tokens, paged attention also
-   at 8192 tokens of context (planned at R = 4 and R = 1) and at several split
-   counts.
+   flash attention also at a causal prompt of 4096 tokens and at deepseek's and
+   hymba's prefill, paged attention also at qwen2-moe's decode and at 8192
+   tokens of context (planned at R = 4 and R = 1) and at several split counts,
+   the scan also at hymba's prefill.
 
-The last line is ``{"ok": true, "device": {...}}``. Any failure raises and the
-script exits non-zero; without a CUDA device it fails before printing anything.
+Each phase's seconds are printed as it ends and gathered in a ``phase_seconds``
+line. The last line is ``{"ok": true, "device": {...}}``. Any failure raises
+and the script exits non-zero; without a CUDA device it fails before printing
+anything.
 """
 
 from __future__ import annotations
@@ -80,7 +99,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.buffers import copy_parts  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (attention_ref,  # noqa: E402
+                                                     flash_attention_online)
 from repro_torch.kernels.paged_attention import ops as pa  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd  # noqa: E402
@@ -126,6 +146,25 @@ LONG_PROMPT = (1, 4096, 16, 64)
 # A long decode context (B, tokens, page tokens): the serving shape's 1.8 MB
 # pool sits in L2; 134 MB of K/V a layer does not, as at long-context serving.
 LONG_DECODE = (4, 8192, 16)
+# The other archs' full-width serving runs (phase serve_archs): batch, prompt,
+# decode steps, and the launches each kernel must show. hymba's prompt of
+# 1280 is a multiple of its 256-token scan chunk, longer than its 1024-token
+# window and not a multiple of it, so the ring wraps off its slot 0.
+MLA_ARCH, HYBRID_ARCH, MOE_ARCH = "deepseek-v2-lite-16b", "hymba-1.5b", "qwen2-moe-a2.7b"
+SERVE_ARCHS = {   # arch: (batch, prompt, gen, {kernel: launches})
+    "rdmabox-paper-100m": (4, 64, 32, {"flash_attention": 12, "paged_attention": 384,
+                                       "ssd_scan": 0}),
+    "musicgen-large": (4, 64, 32, {"flash_attention": 48, "paged_attention": 1536,
+                                   "ssd_scan": 0}),
+    MOE_ARCH: (4, 64, 32, {"flash_attention": 24, "paged_attention": 768, "ssd_scan": 0}),
+    HYBRID_ARCH: (4, 1280, 32, {"flash_attention": 32, "paged_attention": 0,
+                                "ssd_scan": 32}),
+    MLA_ARCH: (4, 64, 32, {"flash_attention": 27, "paged_attention": 0, "ssd_scan": 0}),
+}
+# 65-70 GB of bf16 weights each: not served on one 80 GB card
+CPU_ONLY_ARCHS = ("command-r-35b", "qwen1.5-32b", "qwen2.5-32b", "llava-next-34b")
+HYBRID_DECODE = (1280, 256)       # prefill, then decode across the window's wrap
+MLA_DECODE = (32, 32)             # B 1, all experts: prefill, then decode
 
 
 def emit(obj: dict) -> None:
@@ -229,10 +268,11 @@ def phase_compare(dev: torch.device) -> dict:
                True, None)
     B, S, H, D = LONG_PROMPT
     long_prompt = (B, S, S, H, H, D, True, None)
+    mla, hybrid = flash_mla_shape(), flash_hybrid_shape()
     for dtype in (torch.float32, torch.bfloat16):
         tol = FLASH_TOL[dtype]
         shapes = [(2, *s) for s in FLASH_SHAPES] + (
-            [long_prompt] if dtype == torch.bfloat16 else []) + [serving]
+            [long_prompt, hybrid] if dtype == torch.bfloat16 else []) + [mla, serving]
         for B, Sq, Skv, H, Kh, D, causal, window in shapes:
             q = torch.randn(B, Sq, H, D, generator=gen, device=dev).to(dtype)
             k = torch.randn(B, Skv, Kh, D, generator=gen, device=dev).to(dtype)
@@ -244,8 +284,10 @@ def phase_compare(dev: torch.device) -> dict:
             report["flash"].append({"shape": [B, Sq, Skv, H, Kh, D], "causal": causal,
                                     "window": window, "dtype": str(dtype),
                                     "max_abs_err": err})
-            if (B, Sq, Skv, H, Kh, D, causal, window) == long_prompt:
-                main_err[("flash_long", dtype)] = err
+            for name, shape in (("flash_long", long_prompt), ("flash_mla", mla),
+                                ("flash_hybrid", hybrid)):
+                if (B, Sq, Skv, H, Kh, D, causal, window) == shape:
+                    main_err[(name, dtype)] = err
             del q, k, v, out
         main_err[("flash", dtype)] = err          # the serving shape comes last
     for dtype in (torch.float32, torch.bfloat16):
@@ -269,12 +311,15 @@ def phase_compare(dev: torch.device) -> dict:
                                         "dtype": str(dtype), "max_abs_err": err})
         for case in paged_edge_cases(dev, gen, dtype):
             report["paged"].append({**check_paged_case(case, tol), "dtype": str(dtype)})
-        q, kv, lengths, plan = paged_inputs(dev, gen, dtype)
-        out = pa.paged_attention(q, kv, None, lengths, pages_per_block=4, plan=plan)
-        torch.cuda.synchronize()
-        main_err[("paged", dtype)] = max_err(
-            out, pa.paged_attention_plain(q, kv, *plan, lengths, pages_per_block=4),
-            tol, f"paged {dtype} serving shape")
+        for name, arch in (("paged_moe", MOE_ARCH), ("paged", ARCH)):
+            if name == "paged_moe" and dtype != torch.bfloat16:
+                continue
+            q, kv, lengths, plan = paged_inputs(dev, gen, dtype, arch)
+            out = pa.paged_attention(q, kv, None, lengths, pages_per_block=4, plan=plan)
+            torch.cuda.synchronize()
+            main_err[(name, dtype)] = max_err(
+                out, pa.paged_attention_plain(q, kv, *plan, lengths, pages_per_block=4),
+                tol, f"paged {dtype} serving shape, {arch}")
     q, kv, lengths, plans = paged_long_inputs(dev, gen)
     main_err[("paged_long", torch.bfloat16)] = err = max_err(
         pa.paged_attention(q, kv, None, lengths, pages_per_block=4, plan=plans[4][:2],
@@ -285,7 +330,8 @@ def phase_compare(dev: torch.device) -> dict:
                             "max_abs_err": err})
     del q, kv, lengths, plans
     torch.cuda.empty_cache()
-    report["ssd"], main_err[("ssd", torch.float32)] = compare_ssd(dev, gen)
+    report["ssd"], main_err[("ssd", torch.float32)], main_err[("ssd_hybrid", torch.float32)] \
+        = compare_ssd(dev, gen)
     emit({"phase": "kernels_vs_plain", **report,
           "serving_shape_max_abs_err": {f"{k}/{d}": e for (k, d), e in main_err.items()}})
     return main_err
@@ -311,15 +357,35 @@ def ssd_inputs(dev, gen, B, L, H, P, N, *, model_like=False):
     return x, Bm, Cm, dt, A
 
 
-def ssd_serving_shape():
-    cfg = get_config(SSM_ARCH)
-    return (BATCH, SSM_PROMPT, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
-            cfg.ssm_chunk)
+def ssd_serving_shape(arch: str = SSM_ARCH, prompt: int = SSM_PROMPT):
+    cfg = get_config(arch)
+    return (BATCH, prompt, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk)
 
 
-def compare_ssd(dev, gen) -> tuple[list, float]:
+def ssd_hybrid_shape():
+    """hymba's prefill scan: (4, 1280, 50, 64), N 16, chunk 256."""
+    return ssd_serving_shape(HYBRID_ARCH, SERVE_ARCHS[HYBRID_ARCH][1])
+
+
+def flash_mla_shape():
+    """deepseek's prefill: (B, Sq, Skv, H, Kh, D, causal, window), D = qk_nope + qk_rope."""
+    cfg = get_config(MLA_ARCH)
+    B, S = SERVE_ARCHS[MLA_ARCH][:2]
+    D = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return (B, S, S, cfg.num_heads, cfg.num_heads, D, True, None)
+
+
+def flash_hybrid_shape():
+    """hymba's prefill: GQA 25/5, D 64, a 1024-token window over 1280 tokens."""
+    cfg = get_config(HYBRID_ARCH)
+    B, S = SERVE_ARCHS[HYBRID_ARCH][:2]
+    return (B, S, S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, True, cfg.window)
+
+
+def compare_ssd(dev, gen) -> tuple[list, float, float]:
     """ssd_scan against ssd_chunked and the sequential ssd_ref, and h_final
-    against ssd_chunked's; returns (report, serving-shape max |err| of y)."""
+    against ssd_chunked's; returns (report, max |err| of y at mamba2's serving
+    shape, at hymba's)."""
     torch.backends.cuda.matmul.allow_tf32 = False     # the plain side in true f32
     report = []
 
@@ -352,13 +418,18 @@ def compare_ssd(dev, gen) -> tuple[list, float]:
     _, err = check("serving shape, model-like dt and A",
                    ssd_inputs(dev, gen, B, L, H, P, N, model_like=True), K,
                    SSD_SERVING_TOL, oracle=False)
-    return report, err
+    B, L, H, P, N, K = ssd_hybrid_shape()
+    _, err_hybrid = check("hymba prefill, model-like dt and A",
+                          ssd_inputs(dev, gen, B, L, H, P, N, model_like=True), K, SSD_TOL,
+                          oracle=False)
+    return report, err, err_hybrid
 
 
-def paged_inputs(dev, gen, dtype):
+def paged_inputs(dev, gen, dtype, arch: str = ARCH):
     """The serving path's decode inputs at its last step: 4 sequences of 96
-    tokens in 6 contiguous pages of 16, one layer of a 24 + 3 page pool."""
-    cfg = get_config(ARCH)
+    tokens in 6 contiguous pages of 16, one layer of a 24 + 3 page pool, at
+    ``arch``'s heads."""
+    cfg = get_config(arch)
     H, Kh, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     per_seq = -(-(PROMPT + GEN) // PAGE_TOKENS)
     P = BATCH * per_seq + 4 - 1
@@ -491,6 +562,162 @@ def phase_serve(dev: torch.device) -> dict:
 
 
 LAUNCH_COUNTERS = {"flash_attention": fa, "paged_attention": pa, "ssd_scan": ssd}
+
+
+def rel_err(full: torch.Tensor, dec: torch.Tensor) -> float:
+    """max|forward − decode| / max(|forward|, 1), tests/test_models.py's measure."""
+    full, dec = full.float(), dec.float()
+    if not (torch.isfinite(full).all() and torch.isfinite(dec).all()):
+        raise AssertionError("non-finite logits")
+    return ((full - dec).abs().max() / full.abs().max().clamp(min=1.0)).item()
+
+
+@torch.no_grad()
+def phase_serve_archs() -> dict:
+    """``serve.main`` at full width for the other archs that fit one card, each
+    with its launches reset just before and read just after, its model freed
+    before the next; returns arch → launches."""
+    from repro_torch.configs import get_config as cfg_of
+    t_phase = time.perf_counter()
+    out = {}
+    for arch, (B, prompt, gen, want) in SERVE_ARCHS.items():
+        cfg = cfg_of(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = serve.main(["--arch", arch, "--batch", str(B), "--prompt-len", str(prompt),
+                          "--gen", str(gen)])
+        torch.cuda.synchronize()
+        launches = read_launches()
+        seconds = time.perf_counter() - t0
+        if launches != want:
+            raise AssertionError(f"{arch}: serving path launches {launches}, want {want}")
+        logits = res.decode_logits.float()
+        if tuple(logits.shape) != (B, gen, cfg.padded_vocab) or not torch.isfinite(
+                logits).all():
+            raise AssertionError(f"{arch}: decode logits {tuple(logits.shape)} or not finite")
+        out[arch] = launches
+        print(f"{arch}: prefill {res.prefill_s:.6f} s, decode {gen * B / res.decode_s:,.1f} "
+              f"tok/s, launches {launches}")
+        emit({"phase": "serve_archs", "arch": arch, "family": cfg.family,
+              "layers": cfg.num_layers, "d_model": cfg.d_model,
+              "params": sum(p.numel() for p in res.model.parameters()),
+              "param_count": cfg.param_count(), "cache": type(res.cache).__name__,
+              "batch": B, "prompt": prompt, "gen": gen, "embeddings": bool(cfg.frontend),
+              "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+              "decode_tok_s": gen * B / res.decode_s, "launches": launches,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "seconds": seconds})
+        del res, logits
+    torch.cuda.empty_cache()
+    not_served = {a: {"params": cfg_of(a).param_count(),
+                      "bf16_weights_gb": 2 * cfg_of(a).param_count() / 1e9}
+                  for a in CPU_ONLY_ARCHS}
+    print(f"not served on the card (bf16 weights past one 80 GB card with room): "
+          f"{sorted(not_served)}; they serve on the CPU at --reduced")
+    emit({"phase": "serve_archs", "not_served": not_served,
+          "seconds": time.perf_counter() - t_phase})
+    return out
+
+
+@contextlib.contextmanager
+def plain_prefill_kernels():
+    """Within the block, flash attention and the scan run their plain versions
+    (those the CPU path runs) on the card's tensors, and launch nothing."""
+    saved = fa._launch, ssd._launch
+    fa._launch = lambda q, k, v, causal, window: flash_attention_online(
+        q, k, v, causal=causal, window=window, q_offset=k.shape[1] - q.shape[1])
+    ssd._launch = lambda x, Bm, Cm, dt, A, chunk, return_state: ssd_chunked(
+        x, Bm, Cm, dt, A, chunk=chunk)
+    try:
+        yield
+    finally:
+        fa._launch, ssd._launch = saved
+
+
+# (run, dtype, plain): the serving path in bf16, the same with its prefill
+# kernels swapped for their plain versions, and an f32 copy through the kernels
+DECODE_RUNS = (("bf16", "bf16", False), ("bf16_plain", "bf16", True), ("f32", "f32", False))
+
+
+@torch.no_grad()
+def decode_vs_forward(cfg, prompt: int, steps: int, seed: int) -> dict:
+    """B 1 at full width from seed-0 weights: prefill ``prompt`` tokens, decode
+    ``steps`` more one at a time, and run one forward over all of them, for
+    each of DECODE_RUNS. Returns each run's decode-vs-forward error and
+    launches, each bf16 run's forward against the f32 copy's forward (what
+    bf16 alone moves), and the peak device memory in GB."""
+    from repro_torch.models import init_transformer
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, prompt + steps))).cuda()
+    model = init_transformer(cfg, seed=0, device="cuda")
+    dvf, fwd, launched = {}, {}, {}
+    for run, dtype, plain in DECODE_RUNS:
+        if dtype == "f32":
+            model.float()
+        reset_launches()
+        with plain_prefill_kernels() if plain else contextlib.nullcontext():
+            cache = model.init_cache(1, prompt + steps)
+            model.prefill(toks[:, :prompt], cache)
+            dec = torch.stack([model.decode_step(cache, toks[:, prompt + i],
+                                                 np.array([prompt + i]))
+                               for i in range(steps)], dim=1)
+            fwd[run] = model(toks)[:, prompt:].float()
+            launched[run] = read_launches()
+        if (launched[run]["flash_attention"] == 0) != plain:
+            raise AssertionError(f"{run}: flash launches {launched[run]}")
+        dvf[run] = rel_err(fwd[run], dec)
+        del cache, dec
+    out = {"decode_vs_forward": dvf, "launches": launched,
+           "forward_vs_f32": {run: rel_err(fwd["f32"], fwd[run])
+                              for run, dtype, _ in DECODE_RUNS if dtype == "bf16"},
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del model, fwd
+    torch.cuda.empty_cache()
+    return out
+
+
+def hold_decode_vs_forward(phase: str, arch: str, res: dict, **facts) -> None:
+    """Print ``decode_vs_forward``'s result, hold the f32 copy's error to
+    DECODE_VS_FORWARD_TOL (random bf16 weights amplify rounding past it, as
+    mamba2's do), emit."""
+    dvf = res["decode_vs_forward"]
+    print(f"{arch} decode vs forward: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in dvf.items())
+          + f" (bound {DECODE_VS_FORWARD_TOL}, held in f32); bf16 forward vs f32 forward: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in res["forward_vs_f32"].items()))
+    if not dvf["f32"] < DECODE_VS_FORWARD_TOL:
+        raise AssertionError(f"{arch} decode vs forward in f32: {dvf['f32']:.4f}")
+    emit({"phase": phase, "arch": arch, **facts, **res, "held": "f32"})
+
+
+def phase_hybrid_decode() -> None:
+    """hymba across its window's wrap: prefill of 1280 tokens through flash
+    (window 1024) and the scan, 256 decode steps over the ring and the SSM
+    state, one forward over the 1536 tokens."""
+    cfg = get_config(HYBRID_ARCH)
+    prompt, steps = HYBRID_DECODE
+    res = decode_vs_forward(cfg, prompt, steps, seed=3)
+    hold_decode_vs_forward("hybrid_decode", HYBRID_ARCH, res, prefill=prompt,
+                           decode=steps, window=cfg.window,
+                           ring_slot_of_first_decode=prompt % cfg.window)
+
+
+def phase_mla_decode() -> None:
+    """deepseek with every expert routed (top_k = num_experts, capacity factor
+    2.0, as tests/test_models.py pins it: top-k routing is discontinuous):
+    prefill of 32 tokens through flash at D 192, 32 absorbed decode steps over
+    the latent cache, one forward over the 64 (the f32 copy takes 65 GB)."""
+    from repro_torch.configs import replace
+    base = get_config(MLA_ARCH)
+    cfg = replace(base, top_k=base.num_experts, capacity_factor=2.0)
+    prompt, steps = MLA_DECODE
+    res = decode_vs_forward(cfg, prompt, steps, seed=4)
+    hold_decode_vs_forward("mla_decode", MLA_ARCH, res, top_k=cfg.top_k,
+                           capacity_factor=cfg.capacity_factor, prefill=prompt,
+                           decode=steps)
 
 
 def reset_launches() -> None:
@@ -634,32 +861,77 @@ def phase_profile_ssm(model, prompts) -> None:
           "decode": profile_summary(rows, wall, steps)})
 
 
+def attended_pairs(S: int, window) -> int:
+    """(query, key) pairs a causal prompt of S tokens scores, with an optional window."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
 def flash_row(dev, gen, B: int, S: int, H: int, Kh: int, D: int, launches: int,
-              err: float, case: str) -> dict:
-    """The flash kernel's row of the kernels line: causal bf16 prefill of S tokens."""
+              err: float, case: str, window=None) -> dict:
+    """The flash kernel's row of the kernels line: causal bf16 prefill of S
+    tokens, GQA H/Kh, an optional window. Its library call is SDPA: with
+    ``is_causal`` when every head reads its own KV head and there is no
+    window, else with an explicit boolean mask and the KV heads repeated."""
     dt = torch.bfloat16
     q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dt)
     k = torch.randn(B, S, Kh, D, generator=gen, device=dev).to(dt)
     v = torch.randn(B, S, Kh, D, generator=gen, device=dev).to(dt)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    qt, kt, vt = (x.repeat_interleave(H // x.shape[2], dim=2).transpose(1, 2).contiguous()
+                  for x in (q, k, v))
+    if window is None and H == Kh:
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                                    is_causal=True)
+    else:
+        pos = torch.arange(S, device=dev)
+        mask = pos[None, :] <= pos[:, None]
+        if window is not None:
+            mask &= pos[None, :] > pos[:, None] - window
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                                    attn_mask=mask)
     elem = torch.finfo(dt).bits // 8
     flash_bytes = (2 * q.numel() + k.numel() + v.numel()) * elem
-    flash_flops = 4 * D * B * H * S * (S + 1) // 2        # causal QK^T and PV
+    flash_flops = 4 * D * B * H * attended_pairs(S, window)   # QK^T and PV
     fb, fby = bound_ms(flash_bytes, flash_flops, dt)
     row = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:82",
         "launches": launches, "max_abs_err": err,
-        "ms": device_ms(lambda: fa.flash_attention_op(q, k, v, causal=True)),
-        "plain_ms": device_ms(lambda: attention_ref(q, k, v, causal=True),
+        "ms": device_ms(lambda: fa.flash_attention_op(q, k, v, causal=True, window=window)),
+        "plain_ms": device_ms(lambda: attention_ref(q, k, v, causal=True, window=window),
                               iters=20 if S <= 1024 else 2),
-        "bound_ms": fb, "bound_by": fby,
-        "library_ms": device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)),
-        "case": case, "shape": {"q": list(q.shape), "kv": list(k.shape), "dtype": "bf16"},
+        "bound_ms": fb, "bound_by": fby, "library_ms": device_ms(library),
+        "case": case, "shape": {"q": list(q.shape), "kv": list(k.shape), "window": window,
+                                "dtype": "bf16"},
     }
     del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
+
+
+def scan_row(dev, gen, shape: tuple, launches: int, err: float, case: str) -> dict:
+    """The SSD scan's row of the kernels line at (B, L, H, P, N, chunk), f32,
+    model-like dt and A, the final state written."""
+    B, L, H, P, N, K = shape
+    x, Bm, Cm, dt, A = ssd_inputs(dev, gen, B, L, H, P, N, model_like=True)
+    sb, sby = bound_ms(*ssd_work(B, L, H, P, N, K), torch.float32)
+    row = {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:66",
+        "launches": launches, "max_abs_err": err,
+        "ms": device_ms(lambda: ssd.ssd_scan_op(x, Bm, Cm, dt, A, chunk=K,
+                                                return_state=True)),
+        "plain_ms": device_ms(lambda: ssd_chunked(x, Bm, Cm, dt, A, chunk=K)),
+        "bound_ms": sb, "bound_by": sby, "library_ms": None, "case": case,
+        "shape": {"x": list(x.shape), "N": N, "chunk": K, "dtype": "f32", "h_final": True},
+    }
+    del x, Bm, Cm, dt, A
     torch.cuda.empty_cache()
     return row
 
@@ -700,7 +972,7 @@ def paged_row(q, kv, lengths, plan, live_blocks, launches: int, err: float, case
 
 
 def phase_kernels(dev: torch.device, main_err: dict, launches: dict,
-                  kv_spill_launches: int) -> None:
+                  kv_spill_launches: int, arch_launches: dict) -> None:
     cfg = get_config(ARCH)
     gen = torch.Generator(device=dev).manual_seed(1)
     dt = torch.bfloat16
@@ -711,6 +983,15 @@ def phase_kernels(dev: torch.device, main_err: dict, launches: dict,
     # same kernel, off the main path: its launches are the main path's
     flash_long = flash_row(dev, gen, B, S, Hl, Hl, Dl, launches["flash_attention"],
                            main_err[("flash_long", dt)], "long prompt, causal")
+    B, S, _, Hm, Khm, Dm, _, _ = flash_mla_shape()
+    flash_mla = flash_row(dev, gen, B, S, Hm, Khm, Dm,
+                          arch_launches[MLA_ARCH]["flash_attention"],
+                          main_err[("flash_mla", dt)], f"serving: {MLA_ARCH} prefill, D 192")
+    B, S, _, Hh, Khh, Dh, _, W = flash_hybrid_shape()
+    flash_hybrid = flash_row(dev, gen, B, S, Hh, Khh, Dh,
+                             arch_launches[HYBRID_ARCH]["flash_attention"],
+                             main_err[("flash_hybrid", dt)],
+                             f"serving: {HYBRID_ARCH} prefill, window {W}", window=W)
     pq, pkv, lengths, plan = paged_inputs(dev, gen, dt)
     live = -(-(PROMPT + GEN) // (PAGE_TOKENS * 4))   # as the last decode step plans it
     paged = paged_row(pq, pkv, lengths, plan, live, launches["paged_attention"],
@@ -719,6 +1000,11 @@ def phase_kernels(dev: torch.device, main_err: dict, launches: dict,
     paged["ms_by_splits"] = {S: device_ms(lambda: pa.paged_attention(
         pq, pkv, None, lengths, pages_per_block=4, plan=plan, live_blocks=live, splits=S))
         for S in (1, 2)}
+    del pq, pkv, lengths, plan
+    pq, pkv, lengths, plan = paged_inputs(dev, gen, dt, MOE_ARCH)
+    paged_moe = paged_row(pq, pkv, lengths, plan, live,
+                          arch_launches[MOE_ARCH]["paged_attention"],
+                          main_err[("paged_moe", dt)], f"serving: {MOE_ARCH} decode, D 128")
     del pq, pkv, lengths, plan
     pq, pkv, lengths, plans = paged_long_inputs(dev, gen)
     B = pq.shape[0]
@@ -742,23 +1028,14 @@ def phase_kernels(dev: torch.device, main_err: dict, launches: dict,
     paged_long["launches_kv_spill"] = kv_spill_launches
     del pq, pkv, lengths, plans
     torch.cuda.empty_cache()
-    x, Bm, Cm, dt_, A = ssd_inputs(dev, gen, *ssd_serving_shape()[:5], model_like=True)
-    B_, L_, H_, P_, N_, K_ = ssd_serving_shape()
-    sb, sby = bound_ms(*ssd_work(B_, L_, H_, P_, N_, K_), torch.float32)
-    scan = {
-        "name": "ssd_scan", "route": "cuda",
-        "source": "src/repro_torch/csrc/ssd_scan.cu",
-        "replaces": "src/repro/kernels/ssd_scan/kernel.py:66",
-        "launches": launches["ssd_scan"],
-        "max_abs_err": main_err[("ssd", torch.float32)],
-        "ms": device_ms(lambda: ssd.ssd_scan_op(x, Bm, Cm, dt_, A, chunk=K_,
-                                                return_state=True)),
-        "plain_ms": device_ms(lambda: ssd_chunked(x, Bm, Cm, dt_, A, chunk=K_)),
-        "bound_ms": sb, "bound_by": sby, "library_ms": None,
-        "shape": {"x": list(x.shape), "N": N_, "chunk": K_, "dtype": "f32",
-                  "h_final": True},
-    }
-    emit({"kernels": [flash, flash_long, paged, paged_long, scan]})
+    scan = scan_row(dev, gen, ssd_serving_shape(), launches["ssd_scan"],
+                    main_err[("ssd", torch.float32)], f"serving: {SSM_ARCH} prefill")
+    scan_hybrid = scan_row(dev, gen, ssd_hybrid_shape(),
+                           arch_launches[HYBRID_ARCH]["ssd_scan"],
+                           main_err[("ssd_hybrid", torch.float32)],
+                           f"serving: {HYBRID_ARCH} prefill")
+    emit({"kernels": [flash, flash_long, flash_mla, flash_hybrid, paged, paged_moe,
+                      paged_long, scan, scan_hybrid]})
 
 
 def check_engine_clean(stats: dict, what: str) -> dict:
@@ -1076,30 +1353,48 @@ def ssd_work(B: int, L: int, H: int, P: int, N: int, K: int) -> tuple[int, int]:
     return nbytes, flops
 
 
+PHASE_SECONDS: dict = {}
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, its seconds printed and kept for the summary line."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    print(f"phase {name}: {PHASE_SECONDS[name]:.3f} s", flush=True)
+    return out
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     smi = phase_device()
     dev = torch.device("cuda", 0)
-    phase_build()
-    phase_model()
-    phase_examples()
+    timed("build", phase_build)
+    timed("model", phase_model)
+    timed("examples", phase_examples)
     torch.cuda.empty_cache()
-    main_err = phase_compare(dev)
-    served = phase_serve(dev)
-    phase_profile(served["model"], served["prompts"])
+    main_err = timed("kernels_vs_plain", phase_compare, dev)
+    served = timed("serve", phase_serve, dev)
+    timed("profile", phase_profile, served["model"], served["prompts"])
     launches = served["launches"]
     del served                                    # free qwen's weights and pool
     torch.cuda.empty_cache()
-    served = phase_serve_ssm()
-    phase_profile_ssm(served["model"], served["prompts"])
-    phase_ssm_f32(served["model"], served["prompts"], served["fed"])
+    served = timed("serve_ssm", phase_serve_ssm)
+    timed("profile_ssm", phase_profile_ssm, served["model"], served["prompts"])
+    timed("ssm_f32", phase_ssm_f32, served["model"], served["prompts"], served["fed"])
     launches["ssd_scan"] = served["launches"]["ssd_scan"]
     del served
     torch.cuda.empty_cache()
-    phase_serve_spill()
+    timed("serve_spill", phase_serve_spill)
     torch.cuda.empty_cache()
-    kv_spill_launches = phase_kv_spill(dev)
+    kv_spill_launches = timed("kv_spill", phase_kv_spill, dev)
     torch.cuda.empty_cache()
-    phase_kernels(dev, main_err, launches, kv_spill_launches)
+    arch_launches = timed("serve_archs", phase_serve_archs)
+    timed("hybrid_decode", phase_hybrid_decode)
+    timed("mla_decode", phase_mla_decode)
+    timed("kernels", phase_kernels, dev, main_err, launches, kv_spill_launches,
+          arch_launches)
+    emit({"phase_seconds": PHASE_SECONDS, "total_s": time.perf_counter() - t_start})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,7 +1,9 @@
 """Model config dataclass: a copy of ``repro/configs/base.py``'s ``ModelConfig``.
 
-The port keeps its own copy (it may import nothing from ``repro``); the
-tests hold the two field-for-field equal for every ported arch.
+The port keeps its own copy (it may import nothing from ``repro``): the
+fields, the ``uses_*`` flags, ``d_inner``, ``sub_quadratic`` and the
+analytic ``param_count`` / ``active_param_count``. The tests hold the two
+field-for-field equal for every arch and the counts equal.
 """
 
 from __future__ import annotations
@@ -77,6 +79,61 @@ class ModelConfig:
     @property
     def uses_moe(self) -> bool:
         return self.num_experts > 0
+
+    @property
+    def d_inner(self) -> int:
+        """SSM inner width."""
+        return self.ssm_heads * self.ssm_head_dim
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch decode at 500K context (SSM / sliding window)?"""
+        return self.mixer == "ssm" or (self.mixer == "hybrid") or (
+            self.window is not None)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (used for 6ND roofline math)."""
+        c = self
+        n = c.vocab_size * c.d_model          # embed
+        if not c.tie_embeddings:
+            n += c.vocab_size * c.d_model     # unembed
+        per_layer = 2 * c.d_model             # 2 rmsnorm
+        if c.uses_attention:
+            if c.attention == "mla":
+                q_dim = c.num_heads * (c.qk_nope_dim + c.qk_rope_dim)
+                per_layer += c.d_model * q_dim
+                per_layer += c.d_model * (c.kv_lora_rank + c.qk_rope_dim)
+                per_layer += c.kv_lora_rank * c.num_heads * (c.qk_nope_dim + c.v_head_dim)
+                per_layer += c.num_heads * c.v_head_dim * c.d_model
+            else:
+                per_layer += c.d_model * c.num_heads * c.head_dim       # Q
+                per_layer += 2 * c.d_model * c.num_kv_heads * c.head_dim  # K,V
+                per_layer += c.num_heads * c.head_dim * c.d_model       # O
+                if c.qkv_bias:
+                    per_layer += (c.num_heads + 2 * c.num_kv_heads) * c.head_dim
+        if c.uses_ssm:
+            d_in = c.d_inner
+            per_layer += c.d_model * (2 * d_in + 2 * c.ssm_state * 1)   # x,z,B,C (grouped n_groups=1)
+            per_layer += c.d_model * c.ssm_heads                        # dt proj
+            per_layer += d_in * c.d_model                               # out proj
+            per_layer += 2 * c.ssm_heads                                # A_log, D
+        if c.d_ff:
+            per_layer += 3 * c.d_model * c.d_ff                         # swiglu
+        if c.uses_moe:
+            per_layer += c.d_model * c.num_experts                      # router
+            per_layer += c.num_experts * 3 * c.d_model * c.moe_d_ff
+            per_layer += c.num_shared_experts * 3 * c.d_model * c.moe_d_ff
+        return n + c.num_layers * per_layer
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k + shared only)."""
+        if not self.uses_moe:
+            return self.param_count()
+        c = self
+        full = self.param_count()
+        routed_all = c.num_layers * c.num_experts * 3 * c.d_model * c.moe_d_ff
+        routed_active = c.num_layers * c.top_k * 3 * c.d_model * c.moe_d_ff
+        return full - routed_all + routed_active
 
 
 def replace(cfg, **kw):

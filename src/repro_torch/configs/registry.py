@@ -1,4 +1,4 @@
-"""--arch registry: id → (full config, reduced smoke config), ported archs only."""
+"""--arch registry: id → (full config, reduced smoke config), the reference's list."""
 
 from __future__ import annotations
 
@@ -6,16 +6,26 @@ import importlib
 
 from .base import ModelConfig
 
-ARCH_IDS = ["qwen1.5-0.5b", "mamba2-780m"]
+ARCH_IDS = [
+    "mamba2-780m",
+    "command-r-35b",
+    "qwen1.5-32b",
+    "qwen2.5-32b",
+    "qwen1.5-0.5b",
+    "hymba-1.5b",
+    "deepseek-v2-lite-16b",
+    "qwen2-moe-a2.7b",
+    "musicgen-large",
+    "llava-next-34b",
+    "rdmabox-paper-100m",   # the paper-era end-to-end training model
+]
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 
 
 def _module(arch: str):
     if arch not in _MODULES:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported to repro_torch yet (ROADMAP item 9); "
-            f"ported: {ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
 
 

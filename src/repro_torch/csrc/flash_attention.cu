@@ -8,7 +8,10 @@
 // D^-0.5; output acc / max(l, 1e-30) in q's dtype. KV tiles wholly in the
 // causal future or wholly left of the window are skipped. Both kernels
 // mask ragged edges themselves (q rows >= Sq, kv rows >= Skv), so unlike
-// the TPU kernel they need no Sq % q_block or Skv % kv_block.
+// the TPU kernel they need no Sq % q_block or Skv % kv_block. Head dims 32,
+// 64, 128 and 192 (MLA's prefill: qk_nope + qk_rope, V padded up to it). At
+// 192 the bf16 kernel's tiles take (64 + 4 x 64) x 200 x 2 = 128,000 bytes of
+// shared memory and the f32 kernel's 78,208, under the 227 KB a block may use.
 //
 // bf16 (the serving path): tensor cores. One CTA of 4 warps per (64-row
 // q tile, head, batch); each warp owns 16 query rows.
@@ -18,7 +21,9 @@
 //   16 bytes (D + 8 elements), so the 8 rows an ldmatrix reads fall in 8
 //   distinct bank groups: no conflicts.
 // - S = q . K^T with mma.sync.m16n8k16 bf16 -> f32; the warp's q fragments
-//   stay in registers (ldmatrix once) for the whole KV walk.
+//   stay in registers (ldmatrix once) for the whole KV walk. At D = 192
+//   that is 48 registers of q beside O's 96 and S's 32 in f32: ptxas
+//   places the instance in 255 registers with no spill.
 // - The online softmax runs on the accumulator fragments in registers:
 //   each lane holds two rows, the row max and sum are reduced across the
 //   four lanes of a quad with shuffles, and 2^x is one ex2.approx with
@@ -466,6 +471,9 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out, int B, in
     case 128:
       return bf16 ? launch_bf16<128>(q, k, v, out, B, Sq, Skv, H, Kh, causal, window, s)
                   : launch_f32<128>(q, k, v, out, B, Sq, Skv, H, Kh, causal, window, s);
+    case 192:   // MLA's prefill: qk_nope + qk_rope, V padded up to it
+      return bf16 ? launch_bf16<192>(q, k, v, out, B, Sq, Skv, H, Kh, causal, window, s)
+                  : launch_f32<192>(q, k, v, out, B, Sq, Skv, H, Kh, causal, window, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -17,7 +17,7 @@ import torch
 from .. import _build
 from .ref import flash_attention_online
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 192)      # 192: MLA's qk_nope + qk_rope
 
 launches = 0                        # kernel launches since the last reset
 

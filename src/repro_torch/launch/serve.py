@@ -1,18 +1,25 @@
 """Batched serving: prefill → greedy decode over the model's decode cache.
 
-The port of ``repro/launch/serve.py``. For a dense-GQA arch, prefill runs
-every layer through the flash-attention kernel and writes its K/V into
-device pages; each decode step plans the page-run blocks once on the host
-and runs every layer through the paged-attention kernel. For an SSM arch
-(mamba2-780m), prefill runs every layer through the SSD chunk-scan kernel
-and keeps each layer's final (conv, h) state; decode is the O(1)
-recurrent update. Weights come from a seeded init, so nothing is
-downloaded.
+The port of ``repro/launch/serve.py``, for every arch of the registry.
+Prefill runs every attention layer through the flash-attention kernel and
+every SSM layer through the SSD chunk-scan kernel, and writes each layer's
+decode state into the model's cache (``Transformer.init_cache``): K/V into
+device pages for a dense, MoE or frontend GQA arch, whose decode steps plan
+the page-run blocks once on the host and run every layer through the
+paged-attention kernel; the last ``window`` tokens' K/V into a ring
+(hymba, decoded with plain products, as the reference does); MLA's latent
+(deepseek, absorbed decode); the (conv, h) state for the SSM (mamba2, and
+hymba's SSM half: an O(1) recurrent update). Archs with a stubbed modality
+frontend (musicgen, llava) take embedding prompts and decode inputs drawn
+from the seeded generator, as in the reference, and have no greedy
+continuation. Weights come from a seeded init, so nothing is downloaded.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --batch 4 --prompt-len 64 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
       --batch 4 --prompt-len 512 --gen 256
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+      --reduced --device cpu
 
 ``--device cpu`` runs the plain PyTorch versions of the kernels instead.
 
@@ -34,7 +41,7 @@ import argparse
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -42,7 +49,7 @@ import torch
 from repro_torch import box, resolve_device
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.kernels.paged_attention.ops import descriptor_stats
-from repro_torch.models import PagedKVPool, SSMCache, Transformer, init_transformer
+from repro_torch.models import Cache, PagedKVPool, Transformer, init_transformer
 
 PAGES_PER_BLOCK = 4
 # pages reserved per client for the KV spill arena (the heap slice of
@@ -64,14 +71,20 @@ class SpillResult:
 @dataclass
 class ServeResult:
     model: Transformer
-    cache: Union[PagedKVPool, SSMCache]
-    prompts: torch.Tensor          # (B, prompt_len)
-    fed: torch.Tensor              # (B, gen): the token each decode step took
+    cache: Cache
+    prompts: torch.Tensor          # (B, prompt_len), or (B, prompt_len, M) embeddings
+    fed: torch.Tensor              # (B, gen[, M]): what each decode step took
     decode_logits: torch.Tensor    # (B, gen, padded_vocab)
-    generated: np.ndarray          # (B, gen) greedy continuation
+    generated: Optional[np.ndarray]  # (B, gen) greedy continuation; None for embeddings
     prefill_s: float               # host clock, ends in a device sync
     decode_s: float
     spill: Optional[SpillResult] = None
+
+
+def _embeddings(rng: np.random.Generator, shape, device: torch.device) -> torch.Tensor:
+    """Standard-normal stand-ins for a stubbed frontend's embeddings, bf16."""
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        device, torch.bfloat16)
 
 
 def _sync(device: torch.device) -> None:
@@ -205,8 +218,11 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
     rng = np.random.default_rng(0)
 
     model = init_transformer(cfg, seed=0, device=device)
-    prompts = torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (B, args.prompt_len))).to(device)
+    if cfg.frontend:
+        prompts = _embeddings(rng, (B, args.prompt_len, cfg.d_model), device)
+    else:
+        prompts = torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (B, args.prompt_len))).to(device)
     cache = model.init_cache(B, S, page_tokens=args.page_tokens,
                              pages_per_block=PAGES_PER_BLOCK)
     session = kv = None
@@ -220,7 +236,12 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
     prefill_s = time.perf_counter() - t0
     print(f"prefill {args.prompt_len} tokens × {B} seqs in {prefill_s:.6f}s")
 
-    tok = logits[:, : cfg.vocab_size].argmax(dim=-1)
+    # a frontend arch decodes one drawn embedding a sequence, every step, as
+    # the reference does; a token arch its greedy continuation
+    if cfg.frontend:
+        tok = _embeddings(rng, (B, cfg.d_model), device)
+    else:
+        tok = logits[:, : cfg.vocab_size].argmax(dim=-1)
     cur = np.full(B, args.prompt_len, np.int64)
     fed, step_logits = [], []
     t0 = time.perf_counter()
@@ -228,7 +249,8 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
         fed.append(tok)
         logits = model.decode_step(cache, tok, cur)
         step_logits.append(logits)
-        tok = logits[:, : cfg.vocab_size].argmax(dim=-1)
+        if not cfg.frontend:
+            tok = logits[:, : cfg.vocab_size].argmax(dim=-1)
         cur += 1
         if kv is not None:
             kv_rows = torch.from_numpy(
@@ -243,8 +265,10 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
           f"{args.gen * B / decode_s:,.1f} tok/s")
 
     fed_t = torch.stack(fed, dim=1)
-    generated = torch.cat([fed_t[:, 1:], tok[:, None]], dim=1).cpu().numpy()
-    print("sample continuation token ids:", generated[0, :16].tolist())
+    generated = None
+    if not cfg.frontend:
+        generated = torch.cat([fed_t[:, 1:], tok[:, None]], dim=1).cpu().numpy()
+        print("sample continuation token ids:", generated[0, :16].tolist())
     spill = None
     if kv is not None:
         try:

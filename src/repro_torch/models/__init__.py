@@ -1,7 +1,10 @@
-from .attention import DecodePlan, PagedKVPool
+from .attention import DecodePlan, PagedKVPool, RingKVCache, SlotCache, SlotPlan
 from .convert import from_reference_params
+from .mla import LatentCache
+from .moe import moe_apply
 from .ssm import SSMCache
-from .transformer import Transformer, init_transformer
+from .transformer import Cache, HybridCache, Transformer, init_transformer
 
-__all__ = ["DecodePlan", "PagedKVPool", "SSMCache", "Transformer",
-           "from_reference_params", "init_transformer"]
+__all__ = ["Cache", "DecodePlan", "HybridCache", "LatentCache", "PagedKVPool",
+           "RingKVCache", "SSMCache", "SlotCache", "SlotPlan", "Transformer",
+           "from_reference_params", "init_transformer", "moe_apply"]

@@ -1,17 +1,26 @@
-"""GQA attention: prefill through the flash kernel, decode through the
-paged kernel over a device pool of KV pages.
+"""GQA attention: prefill through the flash kernel; decode through the paged
+kernel over a device pool of KV pages, or over a dense ring of the last
+``window`` tokens for sliding-window archs.
 
-Twin of ``repro/models/attention.py`` for dense GQA. Where the reference
-prefills with ``flash_attention_jnp`` and decodes over a dense cache, the
-port calls the two kernels that compute the same functions:
-``flash_attention_op`` (prefill) and ``paged_attention`` (decode). On CPU
-tensors both run their plain versions.
+Twin of ``repro/models/attention.py``. Where the reference prefills with
+``flash_attention_jnp`` and decodes over a dense cache, the port calls the
+two kernels that compute the same functions: ``flash_attention_op``
+(prefill, with the config's window) and ``paged_attention`` (decode). On
+CPU tensors both run their plain versions. The reference's windowed decode
+reads its ring buffer with plain products, not a kernel, and so does the
+port's ``RingKVCache`` (the paged kernel has no window mask).
+
+A decode cache offers ``prompt_plan``/``write_prompt`` (prefill stores
+the prompt's entries), ``plan_step`` (one step's indices on the device,
+shared by every layer) and, for K/V caches, ``attend`` (store this step's
+k/v, attend over the cache); ``SlotCache`` is the dense kind, also used for
+MLA's latent cache.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +32,8 @@ from ..kernels.paged_attention.ops import (count_live_blocks, paged_attention,
                                            plan_blocks)
 from ..memory.kv_cache import PageAllocator
 from .layers import apply_rope, weight
+
+NEG_INF = -1e30
 
 
 class Attention(nn.Module):
@@ -95,7 +106,8 @@ class PagedKVPool:
                  page_tokens: int = 16, pages_per_block: int = 4,
                  device: torch.device, dtype: torch.dtype = torch.bfloat16) -> None:
         if cfg.window is not None:
-            raise NotImplementedError("sliding-window ring caches are not ported")
+            raise ValueError("the paged kernel has no window mask: a "
+                             "sliding-window arch decodes over a RingKVCache")
         T, R = page_tokens, pages_per_block
         per_seq = -(-max_len // T)
         self.page_tokens, self.pages_per_block = T, R
@@ -125,6 +137,13 @@ class PagedKVPool:
         flat = self.pool[layer].view(-1, *self.pool.shape[3:])   # (P'·T, 2, Kh, D)
         flat[slots] = torch.stack([k, v], dim=2).to(flat.dtype)
 
+    def prompt_plan(self, batch: int, length: int) -> torch.Tensor:
+        """The prompt's token slots (B, S) on the device, once for every layer."""
+        pos = np.broadcast_to(np.arange(length), (batch, length))
+        return torch.from_numpy(self.token_slots(pos).astype(np.int32)).to(self.pool.device)
+
+    write_prompt = write                 # with ``prompt_plan``'s slots
+
     def plan_step(self, cur_index: np.ndarray) -> DecodePlan:
         """Plan the blocks and this step's write slot on the host; one copy up.
 
@@ -144,17 +163,126 @@ class PagedKVPool:
                           dev[2 * n:2 * n + B], dev[2 * n + B:],
                           count_live_blocks(valid, cur + 1, self.page_tokens))
 
+    def attend(self, layer: int, plan: DecodePlan, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor) -> torch.Tensor:
+        """q (B, H, D), k, v (B, Kh, D): writes this token's k/v into its page
+        slot, then attends over ``lengths = cur + 1`` tokens (the reference's
+        ``kv_pos <= cur``) through the paged kernel. Returns (B, H, D)."""
+        self.write(layer, plan.slot[:, None], k[:, None], v[:, None])
+        return paged_attention(q, self.pool[layer], self.page_table, plan.lengths,
+                               pages_per_block=self.pages_per_block,
+                               plan=(plan.block_start, plan.block_valid),
+                               live_blocks=plan.live_blocks)
+
+
+# ---------------------------------------------------------------------------
+# dense slot caches: the sliding-window ring, MLA's latent cache
+# ---------------------------------------------------------------------------
+
+@dataclass
+class SlotPlan:
+    """One decode step's dense-cache indices on the device, shared by every layer."""
+
+    positions: torch.Tensor     # (B, 1): the step's token positions (RoPE)
+    slot: torch.Tensor          # (B,): where the step's entry goes
+    valid: torch.Tensor         # (B, length) bool: the slots the step attends to
+
+
+class SlotCache:
+    """Dense per-layer caches of ``length`` token slots a sequence.
+
+    ``bufs`` holds one (L, B, length, *shape) tensor per entry the cache
+    keeps (K and V, or MLA's latent and rope key). Token p sits at slot
+    ``p % length``, so the cache is a ring of the last ``length`` tokens,
+    and a step at ``cur`` attends to the slots of age
+    ``(slot − s) mod length < min(cur + 1, length)`` (the reference's
+    rule), which is ``s ≤ cur`` while ``cur < length``. A cache that must
+    not wrap overrides ``_check``.
+
+    Prefill keeps the prompt's last ``length`` tokens, token p at slot
+    ``p % length``. The reference keeps them at slots 0..length−1 instead
+    while its decode writes token p at ``p % length``; the two agree when
+    the prompt is at most ``length`` tokens or a multiple of it, and
+    otherwise the reference's decode evicts the wrong token.
+    """
+
+    def __init__(self, num_layers: int, batch: int, length: int,
+                 shapes: Sequence[Tuple[int, ...]], *,
+                 device: torch.device, dtype: torch.dtype = torch.bfloat16) -> None:
+        self.length = length
+        self.bufs = [torch.zeros((num_layers, batch, length, *shape), dtype=dtype,
+                                 device=device) for shape in shapes]
+
+    @property
+    def device(self) -> torch.device:
+        return self.bufs[0].device
+
+    def _check(self, last: int) -> None:
+        """Positions up to ``last`` are about to be written; a ring takes any."""
+
+    def prompt_plan(self, batch: int, length: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(kept prompt positions, their slots) on the device."""
+        self._check(length - 1)
+        pos = torch.arange(max(0, length - self.length), length, device=self.device)
+        return pos, pos % self.length
+
+    def write_prompt(self, layer: int, plan: Tuple[torch.Tensor, torch.Tensor],
+                     *values: torch.Tensor) -> None:
+        """Each value (B, S, *shape) into its buffer, the kept positions only."""
+        pos, slots = plan
+        for buf, val in zip(self.bufs, values):
+            buf[layer][:, slots] = val[:, pos].to(buf.dtype)
+
+    def plan_step(self, cur_index: np.ndarray) -> SlotPlan:
+        """Slot and mask of the step at host positions ``cur_index`` (B,)."""
+        cur = np.asarray(cur_index, np.int64)
+        self._check(int(cur.max()))
+        slot = cur % self.length
+        age = (slot[:, None] - np.arange(self.length)[None, :]) % self.length
+        valid = age < np.minimum(cur + 1, self.length)[:, None]
+        dev = self.device
+        return SlotPlan(torch.from_numpy(cur[:, None]).to(dev), torch.from_numpy(slot).to(dev),
+                        torch.from_numpy(valid).to(dev))
+
+    def write_step(self, layer: int, plan: SlotPlan, *values: torch.Tensor) -> None:
+        """Each value (B, *shape) at its sequence's step slot, in place."""
+        rows = torch.arange(plan.slot.shape[0], device=self.device)
+        for buf, val in zip(self.bufs, values):
+            buf[layer][rows, plan.slot] = val.to(buf.dtype)
+
+
+class RingKVCache(SlotCache):
+    """K and V (L, B, length, Kh, D) for a sliding-window arch:
+    ``length = min(max_len, window)`` slots a sequence, as the reference's
+    ``init_kv_cache`` sizes them."""
+
+    def __init__(self, cfg: ModelConfig, batch: int, max_len: int, *,
+                 device: torch.device, dtype: torch.dtype = torch.bfloat16) -> None:
+        shape = (cfg.num_kv_heads, cfg.head_dim)
+        super().__init__(cfg.num_layers, batch, min(max_len, cfg.window), (shape, shape),
+                         device=device, dtype=dtype)
+
+    def attend(self, layer: int, plan: SlotPlan, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor) -> torch.Tensor:
+        """q (B, H, D), k, v (B, Kh, D): writes this token's k/v at its ring
+        slot, then attends over the window in f32, as the reference's
+        ``attention_decode`` does. Returns (B, H, D) in q's dtype."""
+        self.write_step(layer, plan, k, v)
+        kc, vc = (buf[layer].float() for buf in self.bufs)     # (B, length, Kh, D)
+        B, H, D = q.shape
+        Kh = kc.shape[2]
+        qh = q.reshape(B, Kh, H // Kh, D).float()
+        s = torch.einsum("bkgd,bskd->bkgs", qh, kc) * D ** -0.5
+        s = torch.where(plan.valid[:, None, None, :], s, NEG_INF)
+        out = torch.einsum("bkgs,bskd->bkgd", torch.softmax(s, dim=-1), vc)
+        return out.reshape(B, H, D).to(q.dtype)
+
 
 def attention_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
-                     cache: PagedKVPool, layer: int, plan: DecodePlan
-                     ) -> torch.Tensor:
-    """x: (B, 1, M). Writes this token's k/v into its page slot, then attends
-    over ``lengths = cur + 1`` tokens (the reference's ``kv_pos <= cur``)."""
+                     cache, layer: int, plan) -> torch.Tensor:
+    """x: (B, 1, M) → (B, 1, M) through ``cache.attend`` (a ``PagedKVPool``
+    with its ``DecodePlan``, or a ``RingKVCache`` with its ``SlotPlan``)."""
     B = x.shape[0]
     q, k, v = qkv_proj(p, x, cfg, plan.positions)
-    cache.write(layer, plan.slot[:, None], k, v)
-    out = paged_attention(q[:, 0], cache.pool[layer], cache.page_table,
-                          plan.lengths, pages_per_block=cache.pages_per_block,
-                          plan=(plan.block_start, plan.block_valid),
-                          live_blocks=plan.live_blocks)
+    out = cache.attend(layer, plan, q[:, 0], k[:, 0], v[:, 0])
     return out.reshape(B, 1, cfg.num_heads * cfg.head_dim) @ p.wo

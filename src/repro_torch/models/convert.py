@@ -50,7 +50,7 @@ def from_reference_params(params_np: Dict[str, Any], cfg: ModelConfig,
         if tuple(leaf.shape) != tuple(p.shape):
             raise ValueError(f"{name}: reference shape {tuple(leaf.shape)} "
                              f"vs port {tuple(p.shape)}")
-        p.copy_(torch.from_numpy(np.asarray(leaf, np.float32)))
+        p.copy_(torch.tensor(np.asarray(leaf, np.float32)))
         used.add(key)
     unused = set(ref) - used
     if unused:

@@ -13,9 +13,10 @@ from torch import nn
 PARAM_DTYPE = torch.bfloat16
 
 
-def weight(*shape: int, device: torch.device) -> nn.Parameter:
+def weight(*shape: int, device: torch.device,
+           dtype: torch.dtype = PARAM_DTYPE) -> nn.Parameter:
     """An uninitialised inference weight; ``init_weights`` fills it."""
-    return nn.Parameter(torch.empty(shape, dtype=PARAM_DTYPE, device=device),
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 
 
@@ -23,10 +24,12 @@ def weight(*shape: int, device: torch.device) -> nn.Parameter:
 def init_weights(module: nn.Module, *, seed: int) -> None:
     """The reference's init rule, from a torch generator seeded with ``seed``.
 
-    Norm weights are ones and 1-D biases zeros; the SSM's ``A_log`` and
-    ``D`` are ones (``dt_bias`` and ``conv_b`` are 1-D, so zeros); ``embed``
-    is N(0, 1), the SSM's ``conv_w`` N(0, 0.5²); every other matrix is
-    N(0, 1) · fan_in^-0.5. The draws differ from JAX's, so parity tests load
+    Norm weights (MLA's ``kv_norm`` too) are ones and 1-D biases zeros; the
+    SSM's ``A_log`` and ``D`` are ones (``dt_bias`` and ``conv_b`` are 1-D,
+    so zeros); ``embed`` is N(0, 1), the SSM's ``conv_w`` N(0, 0.5²); every
+    other tensor is N(0, 1) · shape[0]^-0.5 (the MoE's stacked expert
+    weights too, whose leading axis is the expert's, as the reference's
+    ``param`` scales them). The draws differ from JAX's, so parity tests load
     the reference's weights instead (``convert``).
     """
     dev = next(module.parameters()).device

@@ -1,0 +1,116 @@
+"""Multi-head Latent Attention (DeepSeek-V2): prefill through the flash
+kernel, absorbed decode over a compressed latent cache.
+
+Twin of ``repro/models/mla.py``. The decode cache keeps only the low-rank
+latent ``c_kv`` (kv_lora_rank) and the decoupled RoPE key ``k_pe`` a token
+(576 values for V2-Lite, against 16 heads × 2 × 128). Prefill expands the
+latent to per-head keys and values and runs ``flash_attention_op`` at head
+dim ``qk_nope + qk_rope`` (192 at full width), with V padded up to that
+width and sliced back after, as the reference does. Decode attends in the
+latent space with W_kb absorbed into the query, in f32: plain products in
+the reference and here (no Pallas kernel there).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..kernels.flash_attention.ops import flash_attention_op
+from .attention import NEG_INF, SlotCache, SlotPlan
+from .layers import apply_rope, rms_norm, weight
+
+
+class MLA(nn.Module):
+    """The reference's ``init_mla`` leaves, under its names."""
+
+    def __init__(self, cfg: ModelConfig, *, device: torch.device) -> None:
+        super().__init__()
+        M, H = cfg.d_model, cfg.num_heads
+        R, dr, dn, dv = cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.v_head_dim
+        self.wq = weight(M, H * (dn + dr), device=device)     # no q compression (Lite)
+        self.wkv_a = weight(M, R + dr, device=device)          # latent + rope key
+        self.kv_norm = weight(R, device=device)
+        self.wk_b = weight(R, H * dn, device=device)           # up-projections
+        self.wv_b = weight(R, H * dv, device=device)
+        self.wo = weight(H * dv, M, device=device)
+
+
+def _mla_qkv(p: MLA, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    B, S, _ = x.shape
+    H, R, dn = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_nope_dim
+    q = (x @ p.wq).reshape(B, S, H, dn + cfg.qk_rope_dim)
+    q_nope, q_pe = q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    kv = x @ p.wkv_a
+    c_kv = rms_norm(kv[..., :R], p.kv_norm, cfg.norm_eps)
+    k_pe = apply_rope(kv[..., R:], positions, cfg.rope_theta)          # (B, S, dr)
+    return q_nope, q_pe, c_kv, k_pe
+
+
+def mla_train(p: MLA, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Causal MLA over the whole sequence; returns (y, c_kv, k_pe)."""
+    B, S, _ = x.shape
+    H, dn, dr, dv = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q_nope, q_pe, c_kv, k_pe = _mla_qkv(p, x, cfg, positions)
+    k_nope = (c_kv @ p.wk_b).reshape(B, S, H, dn)
+    v = (c_kv @ p.wv_b).reshape(B, S, H, dv)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, H, dr)], dim=-1)
+    # pad v's head dim up to the qk dim for the shared flash path, slice after
+    v_p = F.pad(v, (0, dn + dr - dv))
+    out = flash_attention_op(q, k, v_p, causal=True)[..., :dv]
+    return out.reshape(B, S, H * dv) @ p.wo, c_kv, k_pe
+
+
+class LatentCache(SlotCache):
+    """Every layer's ``c_kv`` (L, B, max_len, R) and ``k_pe`` (L, B, max_len,
+    dr), as the reference's ``init_mla_cache`` stacked on the layer axis."""
+
+    def __init__(self, cfg: ModelConfig, batch: int, max_len: int, *,
+                 device: torch.device, dtype: torch.dtype = torch.bfloat16) -> None:
+        super().__init__(cfg.num_layers, batch, max_len,
+                         ((cfg.kv_lora_rank,), (cfg.qk_rope_dim,)),
+                         device=device, dtype=dtype)
+
+    def _check(self, last: int) -> None:
+        """Not a ring: a position past ``max_len`` raises."""
+        if last >= self.length:
+            raise IndexError(f"position {last} outside [0, {self.length})")
+
+    @property
+    def c_kv(self) -> torch.Tensor:
+        return self.bufs[0]
+
+    @property
+    def k_pe(self) -> torch.Tensor:
+        return self.bufs[1]
+
+
+def mla_decode(p: MLA, x: torch.Tensor, cfg: ModelConfig, cache: LatentCache,
+               layer: int, plan: SlotPlan) -> torch.Tensor:
+    """Absorbed-matmul decode, x: (B, 1, M). Writes this token's latent and
+    rope key, then attends over ``s ≤ cur`` in the latent space: scores
+    q_nope·W_kb against ``c_kv`` plus q_pe against ``k_pe``, scaled by
+    (dn + dr)^-0.5; the latent output goes up through W_vb."""
+    B = x.shape[0]
+    H, R = cfg.num_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q_nope, q_pe, c_new, kpe_new = _mla_qkv(p, x, cfg, plan.positions)
+    cache.write_step(layer, plan, c_new[:, 0], kpe_new[:, 0])
+    c_kv, k_pe = cache.c_kv[layer].float(), cache.k_pe[layer].float()
+    wk_b = p.wk_b.reshape(R, H, dn).float()
+    wv_b = p.wv_b.reshape(R, H, dv).float()
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), wk_b)    # absorb W_kb
+    s = torch.einsum("bhr,bsr->bhs", q_lat, c_kv)
+    s = s + torch.einsum("bhd,bsd->bhs", q_pe[:, 0].float(), k_pe)
+    s = s * (dn + dr) ** -0.5
+    s = torch.where(plan.valid[:, None, :], s, NEG_INF)
+    o_lat = torch.einsum("bhs,bsr->bhr", torch.softmax(s, dim=-1), c_kv)
+    out = torch.einsum("bhr,rhd->bhd", o_lat, wv_b)
+    return out.reshape(B, 1, H * dv).to(x.dtype) @ p.wo
+

@@ -1,18 +1,27 @@
 """Decoder stack: forward, prefill into the decode cache, decode.
 
-Twin of ``repro/models/transformer.py`` for dense-GQA and SSM archs. A
-block is a pre-norm mixer (GQA attention or the Mamba-2 SSM) plus a
-pre-norm SwiGLU FFN when ``d_ff`` is set (with ``d_ff = 0`` the FFN half
-adds nothing, as in the reference). The layer ``scan`` becomes a Python
-loop over an ``nn.ModuleList``. The reference's prompt-length cache plus
-splice becomes a prefill that writes each layer's state straight into the
-decode cache: K and V into the paged pool for attention, the (conv, h)
-state into an ``SSMCache`` for the SSM.
+Twin of ``repro/models/transformer.py`` for every arch of the registry. A
+block is a pre-norm mixer plus a pre-norm FFN, as the reference's
+``block_forward`` and ``block_decode``:
+
+- mixer: GQA attention, MLA, the Mamba-2 SSM, or (``mixer = "hybrid"``)
+  attention and the SSM in parallel, mixed ``0.5 · (attn + ssm)``;
+- FFN: the MoE when ``num_experts`` is set, else a SwiGLU MLP when ``d_ff``
+  is set, else nothing (the reference adds zero).
+
+The layer ``scan`` becomes a Python loop over an ``nn.ModuleList``. The
+reference's prompt-length cache plus splice becomes a prefill that writes
+each layer's state straight into the decode cache (``init_cache``): K and V
+into the paged pool, the last ``window`` tokens' K/V into a ring, MLA's
+latent into its cache, the (conv, h) state into an ``SSMCache``. Inputs are
+token ids, or precomputed embeddings for the archs with a stubbed modality
+frontend (the reference's ``tokens_or_embeds``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from dataclasses import dataclass
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -20,39 +29,113 @@ from torch import nn
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
-from .attention import Attention, PagedKVPool, attention_decode, attention_train
+from .attention import (Attention, PagedKVPool, RingKVCache, attention_decode,
+                        attention_train)
 from .layers import MLP, init_weights, rms_norm, weight
+from .mla import MLA, LatentCache, mla_decode, mla_train
+from .moe import MoE, moe_apply
 from .ssm import SSM, SSMCache, ssm_decode, ssm_train
 
-Cache = Union[PagedKVPool, SSMCache]
+KVCache = Union[PagedKVPool, RingKVCache, LatentCache]
+
+
+@dataclass
+class HybridCache:
+    """A hybrid arch's decode cache: its attention half's ring of the last
+    ``window`` tokens' K/V and its SSM half's state."""
+
+    kv: RingKVCache
+    ssm: SSMCache
+
+
+Cache = Union[PagedKVPool, RingKVCache, LatentCache, SSMCache, HybridCache]
+
+
+def _parts(cache: Optional[Cache]) -> Tuple[Optional[KVCache], Optional[SSMCache]]:
+    """(attention cache, SSM cache) of any decode cache; None where absent."""
+    if isinstance(cache, HybridCache):
+        return cache.kv, cache.ssm
+    if isinstance(cache, SSMCache):
+        return None, cache
+    return cache, None
 
 
 class Block(nn.Module):
-    """Pre-norm mixer (attention or SSM) + pre-norm SwiGLU MLP if ``d_ff``."""
+    """Pre-norm mixer + pre-norm FFN, with the reference's leaf names."""
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device) -> None:
         super().__init__()
+        self.cfg = cfg
         self.norm_mixer = weight(cfg.d_model, device=device)
         self.norm_ffn = weight(cfg.d_model, device=device)
-        self.attn = Attention(cfg, device=device) if cfg.uses_attention else None
+        mla = cfg.uses_attention and cfg.attention == "mla"
+        self.attn = Attention(cfg, device=device) if cfg.uses_attention and not mla else None
+        self.mla = MLA(cfg, device=device) if mla else None
         self.ssm = SSM(cfg, device=device) if cfg.uses_ssm else None
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, device=device) if cfg.d_ff else None
+        self.moe = MoE(cfg, device=device) if cfg.uses_moe else None
+        self.mlp = (MLP(cfg.d_model, cfg.d_ff, device=device)
+                    if cfg.d_ff and not cfg.uses_moe else None)
 
-    def ffn(self, x: torch.Tensor, eps: float) -> torch.Tensor:
+    def _mix(self, attn: Optional[torch.Tensor], ssm: Optional[torch.Tensor]
+             ) -> torch.Tensor:
+        if ssm is None:
+            return attn
+        return ssm if attn is None else 0.5 * (attn + ssm)
+
+    def mix_prompt(self, h: torch.Tensor, positions: torch.Tensor, layer: int,
+                   kv: Optional[KVCache], kv_plan, ssm: Optional[SSMCache]
+                   ) -> torch.Tensor:
+        """The mixer over a whole sequence; stores its decode state in the caches given."""
+        cfg = self.cfg
+        a = s = None
+        if self.attn is not None:
+            a, k, v = attention_train(self.attn, h, cfg, positions)
+            if kv is not None:
+                kv.write_prompt(layer, kv_plan, k, v)
+        elif self.mla is not None:
+            a, c_kv, k_pe = mla_train(self.mla, h, cfg, positions)
+            if kv is not None:
+                kv.write_prompt(layer, kv_plan, c_kv, k_pe)
+        if self.ssm is not None:
+            s = ssm_train(self.ssm, h, cfg, return_state=ssm is not None)
+            if ssm is not None:
+                s, state = s
+                ssm.write(layer, state)
+        return self._mix(a, s)
+
+    def mix_step(self, h: torch.Tensor, layer: int, kv: Optional[KVCache], plan,
+                 ssm: Optional[SSMCache]) -> torch.Tensor:
+        """The mixer for one token a sequence, updating the caches in place."""
+        cfg = self.cfg
+        a = s = None
+        if self.attn is not None:
+            a = attention_decode(self.attn, h, cfg, kv, layer, plan)
+        elif self.mla is not None:
+            a = mla_decode(self.mla, h, cfg, kv, layer, plan)
+        if self.ssm is not None:
+            s = ssm_decode(self.ssm, h, ssm, layer, cfg)
+        return self._mix(a, s)
+
+    def ffn(self, x: torch.Tensor) -> torch.Tensor:
+        """x + FFN(norm(x)); the MoE's aux loss is dropped, as the reference's
+        prefill and decode drop it."""
+        if self.moe is not None:
+            y, _ = moe_apply(self.moe, rms_norm(x, self.norm_ffn, self.cfg.norm_eps),
+                             self.cfg)
+            return x + y
         if self.mlp is None:                     # d_ff = 0: the FFN half adds zero
             return x
-        return x + self.mlp(rms_norm(x, self.norm_ffn, eps))
+        return x + self.mlp(rms_norm(x, self.norm_ffn, self.cfg.norm_eps))
 
 
 class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device: str | torch.device = "cuda"
                  ) -> None:
         super().__init__()
-        if (cfg.mixer not in ("attn", "ssm") or cfg.attention not in ("gqa", "none")
-                or cfg.uses_moe or cfg.frontend):
-            raise NotImplementedError(
-                f"{cfg.name}: only dense GQA and SSM archs are ported; hybrid, "
-                "MLA, MoE and frontend archs are not (ROADMAP item 9)")
+        if cfg.mixer not in ("attn", "ssm", "hybrid") or cfg.attention not in (
+                "gqa", "mla", "none"):
+            raise ValueError(f"{cfg.name}: no block for mixer {cfg.mixer!r} with "
+                             f"attention {cfg.attention!r}")
         device = resolve_device(device)
         self.cfg = cfg
         self.embed = weight(cfg.padded_vocab, cfg.d_model, device=device)
@@ -66,67 +149,77 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def _embed(self, tokens_or_embeds: torch.Tensor, token_ndim: int) -> torch.Tensor:
+        """Token ids (``token_ndim`` dims) through the table, or precomputed
+        embeddings (one dim more) cast to the table's dtype."""
+        if tokens_or_embeds.ndim == token_ndim:
+            return self.embed[tokens_or_embeds]
+        return tokens_or_embeds.to(self.embed.dtype)
+
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         unembed = self.embed.T if self.cfg.tie_embeddings else self.unembed
         return x @ unembed
 
-    def _trunk(self, tokens: torch.Tensor, cache: Optional[Cache]) -> torch.Tensor:
-        cfg = self.cfg
-        B, S = tokens.shape
-        x = self.embed[tokens]
+    def _trunk(self, tokens_or_embeds: torch.Tensor, cache: Optional[Cache]
+               ) -> torch.Tensor:
+        x = self._embed(tokens_or_embeds, 2)
+        B, S = x.shape[:2]
         positions = torch.arange(S, device=self.device).expand(B, S)
-        slots = None
-        if cache is not None and cfg.uses_attention:
-            pos = np.broadcast_to(np.arange(S), (B, S))
-            slots = torch.from_numpy(cache.token_slots(pos).astype(np.int32)
-                                     ).to(self.device)
+        kv, ssm = _parts(cache)
+        kv_plan = kv.prompt_plan(B, S) if kv is not None else None
         for layer, blk in enumerate(self.blocks):
-            h = rms_norm(x, blk.norm_mixer, cfg.norm_eps)
-            if cfg.uses_attention:
-                y, k, v = attention_train(blk.attn, h, cfg, positions)
-                if cache is not None:
-                    cache.write(layer, slots, k, v)
-            else:
-                y = ssm_train(blk.ssm, h, cfg, return_state=cache is not None)
-                if cache is not None:
-                    y, state = y
-                    cache.write(layer, state)
-            x = blk.ffn(x + y, cfg.norm_eps)
+            h = rms_norm(x, blk.norm_mixer, self.cfg.norm_eps)
+            x = blk.ffn(x + blk.mix_prompt(h, positions, layer, kv, kv_plan, ssm))
         return x
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) → logits (B, S, padded_vocab)."""
-        return self._logits(self._trunk(tokens, None))
+    def forward(self, tokens_or_embeds: torch.Tensor) -> torch.Tensor:
+        """tokens (B, S) or embeddings (B, S, M) → logits (B, S, padded_vocab)."""
+        return self._logits(self._trunk(tokens_or_embeds, None))
 
     def init_cache(self, batch: int, max_len: int, *, page_tokens: int = 16,
                    pages_per_block: int = 4) -> Cache:
-        """A paged KV pool for attention archs; an ``SSMCache`` (fixed size,
-        so ``max_len`` and the page shape do not apply) for SSM archs."""
-        if self.cfg.uses_ssm:
-            return SSMCache(self.cfg, batch, device=self.device)
-        return PagedKVPool(self.cfg, batch, max_len, page_tokens=page_tokens,
-                           pages_per_block=pages_per_block, device=self.device)
+        """The decode cache of this arch's family:
 
-    def prefill(self, tokens: torch.Tensor, cache: Cache) -> torch.Tensor:
+        - dense, MoE and frontend GQA archs: a ``PagedKVPool``;
+        - GQA with a sliding window: a ``RingKVCache`` of ``min(max_len, window)``
+          slots a sequence (the page shape does not apply);
+        - MLA: a ``LatentCache``;
+        - SSM: an ``SSMCache`` (fixed size: ``max_len`` does not apply);
+        - hybrid: a ``HybridCache`` of the ring and the SSM state.
+
+        K/V and latent entries are kept in the weights' dtype (bf16, the
+        reference's cache dtype, unless the model was cast); the SSM state in f32.
+        """
+        cfg, dev, dtype = self.cfg, self.device, self.embed.dtype
+        kv = None
+        if cfg.uses_attention and cfg.attention == "mla":
+            kv = LatentCache(cfg, batch, max_len, device=dev, dtype=dtype)
+        elif cfg.uses_attention and cfg.window is not None:
+            kv = RingKVCache(cfg, batch, max_len, device=dev, dtype=dtype)
+        elif cfg.uses_attention:
+            kv = PagedKVPool(cfg, batch, max_len, page_tokens=page_tokens,
+                             pages_per_block=pages_per_block, device=dev, dtype=dtype)
+        if not cfg.uses_ssm:
+            return kv
+        ssm = SSMCache(cfg, batch, device=dev)
+        return ssm if kv is None else HybridCache(kv, ssm)
+
+    def prefill(self, tokens_or_embeds: torch.Tensor, cache: Cache) -> torch.Tensor:
         """Runs the prompt, writes its decode state into ``cache``;
         last-position logits."""
-        return self._logits(self._trunk(tokens, cache)[:, -1])
+        return self._logits(self._trunk(tokens_or_embeds, cache)[:, -1])
 
-    def decode_step(self, cache: Cache, tokens: torch.Tensor,
+    def decode_step(self, cache: Cache, token_or_embed: torch.Tensor,
                     cur_index: np.ndarray) -> torch.Tensor:
-        """One token per sequence: tokens (B,) at host positions ``cur_index``
-        (B,). Returns logits (B, padded_vocab)."""
-        cfg = self.cfg
-        plan = cache.plan_step(cur_index) if cfg.uses_attention else None
-        x = self.embed[tokens][:, None, :]                      # (B, 1, M)
+        """One token per sequence: ids (B,) or embeddings (B, M) at host
+        positions ``cur_index`` (B,). Returns logits (B, padded_vocab)."""
+        kv, ssm = _parts(cache)
+        plan = kv.plan_step(cur_index) if kv is not None else None
+        x = self._embed(token_or_embed, 1)[:, None, :]              # (B, 1, M)
         for layer, blk in enumerate(self.blocks):
-            h = rms_norm(x, blk.norm_mixer, cfg.norm_eps)
-            if cfg.uses_attention:
-                y = attention_decode(blk.attn, h, cfg, cache, layer, plan)
-            else:
-                y = ssm_decode(blk.ssm, h, cache, layer, cfg)
-            x = blk.ffn(x + y, cfg.norm_eps)
+            h = rms_norm(x, blk.norm_mixer, self.cfg.norm_eps)
+            x = blk.ffn(x + blk.mix_step(h, layer, kv, plan, ssm))
         return self._logits(x)[:, 0]
 
 

@@ -46,6 +46,7 @@ FLASH_SHAPES = [   # Sq, Skv, H, Kh, D, causal, window, Pallas q_block, kv_block
     (256, 256, 8, 2, 32, True, 96, 64, 32),
     (64, 192, 2, 2, 32, True, None, 32, 32),
     (64, 64, 2, 1, 128, True, None, 64, 64),
+    (64, 64, 2, 2, 192, True, None, 64, 64),    # MLA's qk_nope + qk_rope (deepseek)
 ]
 
 
@@ -122,6 +123,9 @@ FLASH_GPU_SHAPES = [   # B, Sq, Skv, H, Kh, D, causal, window
     # enough q tiles for 128-row tiles, with ragged Sq and Skv, GQA, a window
     (4, 1000, 1500, 8, 2, 64, True, 300),
     (4, 1000, 1500, 8, 2, 32, False, None),
+    (4, 64, 64, 16, 16, 192, True, None),       # deepseek prefill (MLA, D 192)
+    (2, 300, 300, 4, 4, 192, True, None),       # D 192, ragged tiles
+    (4, 1280, 1280, 25, 5, 64, True, 1024),     # hymba prefill: G 5, window 1024
 ]
 
 

@@ -64,13 +64,20 @@ def tokens(seed, B, S, vocab):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_configs_copy_the_reference(arch):
-    assert ARCH_IDS == ["qwen1.5-0.5b", "mamba2-780m"]
+    """Every arch of the reference's registry, in its order; each config
+    field for field and its derived counts equal."""
+    from repro.configs import ARCH_IDS as REF_ARCH_IDS
+    assert ARCH_IDS == REF_ARCH_IDS
     for ours, theirs in ((get_config(arch), ref_get_config(arch)),
                          (get_reduced(arch), ref_get_reduced(arch))):
         assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
-        assert ours.padded_vocab == theirs.padded_vocab
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        get_config("hymba-1.5b")
+        for prop in ("padded_vocab", "uses_attention", "uses_ssm", "uses_moe", "d_inner",
+                     "sub_quadratic"):
+            assert getattr(ours, prop) == getattr(theirs, prop), prop
+        assert ours.param_count() == theirs.param_count()
+        assert ours.active_param_count() == theirs.active_param_count()
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
 
 
 def test_conversion_keeps_every_leaf(models):

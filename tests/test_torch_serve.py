@@ -25,7 +25,9 @@ torch.set_num_threads(1)   # small shapes; leave the cores to parallel test work
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_reduced  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import PagedKVPool  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU_ARGS = ["--reduced", "--device", "cpu", "--batch", "3", "--prompt-len", "20",
@@ -141,6 +143,53 @@ def test_serve_ssm_on_gpu_goes_through_the_scan_kernel():
     res = serve.main(["--arch", "mamba2-780m", "--reduced", "--batch", "2",
                       "--prompt-len", "64", "--gen", "4"])
     assert (ssd.launches, fa.launches, pa.launches) == (res.model.cfg.num_layers, 0, 0)
+    assert torch.isfinite(res.decode_logits.float()).all()
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_serve_every_arch_on_cpu(arch, capsys):
+    """``--arch <id> --reduced --device cpu`` serves every arch of the
+    registry: the reference's lines, a greedy continuation for token archs
+    (none for a frontend's embeddings), the page-run line only over a paged
+    cache, and no kernel launch on the CPU."""
+    cfg = get_reduced(arch)
+    fa.launches = pa.launches = ssd.launches = 0
+    res = serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",
+                      "--prompt-len", "16", "--gen", "4", "--page-tokens", "4"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[-1] == "SERVING DONE"
+    assert re.fullmatch(r"prefill 16 tokens × 2 seqs in [0-9.]+s", out[0])
+    assert re.fullmatch(r"decode 4 steps × 2 seqs: [0-9.,]+ tok/s", out[1])
+    assert any(ln.startswith("sample continuation") for ln in out) == (not cfg.frontend)
+    assert any(ln.startswith("page-run coalescing") for ln in out) == isinstance(
+        res.cache, PagedKVPool)
+    assert isinstance(res.cache, PagedKVPool) == (
+        cfg.uses_attention and cfg.attention == "gqa" and cfg.window is None)
+    if cfg.frontend:
+        assert res.generated is None and res.prompts.shape == (2, 16, cfg.d_model)
+        assert res.fed.shape == (2, 4, cfg.d_model)
+    else:
+        greedy = res.decode_logits[:, :, :cfg.vocab_size].argmax(-1).numpy()
+        np.testing.assert_array_equal(res.generated, greedy)
+    assert res.decode_logits.shape == (2, 4, cfg.padded_vocab)
+    assert torch.isfinite(res.decode_logits.float()).all()
+    assert (fa.launches, pa.launches, ssd.launches) == (0, 0, 0)
+
+
+# reduced archs the kernels take (deepseek's reduced head dim 48 is CPU-only):
+# arch → (flash, paged, ssd_scan) launches for 2 layers, 4 decode steps
+GPU_ARCHS = {"rdmabox-paper-100m": (2, 8, 0), "musicgen-large": (2, 8, 0),
+             "qwen2-moe-a2.7b": (2, 8, 0), "hymba-1.5b": (2, 0, 2)}
+
+
+@pytest.mark.parametrize("arch", sorted(GPU_ARCHS))
+def test_serve_arch_on_gpu_goes_through_its_kernels(arch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    fa.launches = pa.launches = ssd.launches = 0
+    res = serve.main(["--arch", arch, "--reduced", "--batch", "2", "--prompt-len", "64",
+                      "--gen", "4"])
+    assert (fa.launches, pa.launches, ssd.launches) == GPU_ARCHS[arch]
     assert torch.isfinite(res.decode_logits.float()).all()
 
 

@@ -184,12 +184,18 @@ def test_init_weights_ssm_rule():
 
 
 def test_transformer_refuses_unported_archs():
+    """Every mixer and attention kind of the registry has a block now (the
+    hybrid, MoE and frontend variants of this config build); a kind the
+    reference has no block for is refused."""
     from repro_torch.configs import replace
     cfg = get_reduced(ARCH)
-    for bad in (replace(cfg, mixer="hybrid", attention="gqa"),
-                replace(cfg, num_experts=4),
-                replace(cfg, frontend="audio")):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    for ok in (replace(cfg, mixer="hybrid", attention="gqa", num_heads=4, num_kv_heads=2,
+                       head_dim=32, window=16),
+               replace(cfg, num_experts=4, top_k=2, moe_d_ff=32),
+               replace(cfg, frontend="audio")):
+        Transformer(ok, device="cpu")
+    for bad in (replace(cfg, mixer="retnet"), replace(cfg, attention="linear")):
+        with pytest.raises(ValueError, match="no block for mixer"):
             Transformer(bad, device="cpu")
 
 

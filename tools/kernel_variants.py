@@ -49,7 +49,7 @@ SSD = {
                    ("__launch_bounds__(kThreads)\nssd_scan_kernel",
                     "__launch_bounds__(kThreads, 2)\nssd_scan_kernel")],
 }
-# (old, new) edits of csrc/flash_attention.cu; timed at a causal 4096-token prompt
+# (old, new) edits of csrc/flash_attention.cu; timed at FLASH_CASES (causal)
 FLASH = {
     "shipped": [],
     "no_exp": [("fast_exp2(s[n][2 * rr] - mn)", "(s[n][2 * rr] - mn)"),
@@ -60,6 +60,10 @@ FLASH = {
               "          mma_bf16(s[2 * np + 1], qf[kk], r[2], r[3]);\n", "")],
     "exp2f": [('asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));', "y = exp2f(x);")],
 }
+# (case, B, S, H, D) of the flash timings: every variant at each
+FLASH_CASES = [("long prompt D 64", 1, 4096, 16, 64),
+               ("deepseek prefill D 192", 4, 64, 16, 192),
+               ("long prompt D 192", 1, 4096, 16, 192)]
 
 # (old, new) edits of csrc/paged_attention.cu; timed at chip_smoke.py's long
 # decode context (8192 tokens a sequence) planned at R = 4 and R = 1, each at
@@ -162,22 +166,26 @@ def time_ssd(cs, ssd_libs, dev, gen, stream) -> None:
 
 def time_flash(cs, flash_libs, dev, gen, stream) -> None:
     import torch
-    Bf, S, Hf, D = cs.LONG_PROMPT
-    q, k, v = (torch.randn(Bf, S, Hf, D, generator=gen, device=dev).bfloat16()
-               for _ in range(3))
-    o = torch.empty_like(q)
+    fns = {}
     for name, (so, used) in flash_libs.items():
-        fn = ctypes.CDLL(str(so)).flash_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-
-        def call():
-            _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                            Bf, S, S, Hf, Hf, D, 1, 0, 1, stream()), name)
-        print(json.dumps({"kernel": "flash_attention", "variant": name,
-                          "ms": cs.device_ms(call), "ptxas": used}), flush=True)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    print(json.dumps({"kernel": "scaled_dot_product_attention", "ms": cs.device_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True))}))
+        fns[name] = ctypes.CDLL(str(so)).flash_attention_fwd
+        fns[name].argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    for case, Bf, S, Hf, D in FLASH_CASES:
+        q, k, v = (torch.randn(Bf, S, Hf, D, generator=gen, device=dev).bfloat16()
+                   for _ in range(3))
+        o = torch.empty_like(q)
+        for name, fn in fns.items():
+            def call():
+                _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                Bf, S, S, Hf, Hf, D, 1, 0, 1, stream()), name)
+            print(json.dumps({"kernel": "flash_attention", "variant": name, "case": case,
+                              "ms": cs.device_ms(call), "ptxas": flash_libs[name][1]}),
+                  flush=True)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        print(json.dumps({"kernel": "scaled_dot_product_attention", "case": case,
+                          "ms": cs.device_ms(lambda: torch.nn.functional
+                                             .scaled_dot_product_attention(
+                                                 qt, kt, vt, is_causal=True))}))
 
 
 def time_paged(cs, paged_libs, dev, gen, stream) -> None:
