@@ -6,8 +6,9 @@
 Phases, each printing one JSON line:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: compile every ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a, one
-   nvcc per source, all started together;
+2. build: compile every ``src/repro_torch/csrc/*.cu`` (flash attention forward and
+   backward, paged attention, the SSD scan) with nvcc for sm_90a, one nvcc per
+   source, all started together;
 3. model: the analytic backend's calibration against the threaded engine
    (``repro_torch.model.run_calibration``) at the reference suite's point, 4
    clients, 2 donors, 1 worker, paced 1-page writes, with the clients' buffers
@@ -26,7 +27,10 @@ Phases, each printing one JSON line:
    attention also at a causal prompt of 4096 tokens, at deepseek's prefill at
    head dim 192 and at hymba's, GQA 25/5 with a 1024-token window; paged
    attention also at qwen2-moe's decode, D 128, at its edge cases and at 8192
-   tokens of context; the scan also at hymba's prefill, 50 heads, N 16);
+   tokens of context; the scan also at hymba's prefill, 50 heads, N 16); the
+   flash backward and the forward's LSE at the reference suite's shapes, the
+   training shape, qwen1.5-0.5b's heads, hymba's window and deepseek's D 192,
+   in f32 and bf16, the backward run twice and held to equal bits;
 6. serve: ``repro_torch.launch.serve.main`` at full width (qwen1.5-0.5b, batch 4,
    prompt 64, 32 decode steps) with every kernel's launch count reset just
    before and read just after; the decode logits against one forward pass over
@@ -63,12 +67,26 @@ Phases, each printing one JSON line:
 15. mla_decode: deepseek at full width with every expert routed, prefill of 32
    tokens and 32 absorbed decode steps against one forward; held and witnessed
    as hymba is;
-16. kernels: each kernel's time at the serving shapes (CUDA-graph replay, so no
+16. train: ``repro_torch.launch.train.main`` at full width (rdmabox-paper-100m,
+   batch 8, sequence 512, 30 steps, --offload of the first moment through the
+   engine), launches reset just before and held to 12 flash forwards and 12
+   flash backwards a step just after, the loss finite at every step and the
+   mean of the last 5 below the first 5's by 0.1; step seconds, train tok/s,
+   peak device memory; then 2 steps with --remat full (24 forwards a step);
+17. train_grads: one step of rdmabox-paper-100m (B 8) and qwen1.5-0.5b (B 4)
+   at full width, every parameter's gradient through the kernels against the
+   gradient with flash's plain versions swapped in on the card: held on an
+   f32 copy (finite, nonzero, relative norm error ≤ 1e-4), printed in bf16;
+18. train_resume: rdmabox-paper-100m's width at 2 layers, 6 straight steps
+   against 3 + a checkpoint restore + 3, every parameter and moment equal;
+19. kernels: each kernel's time at the serving shapes (CUDA-graph replay, so no
    host gaps), its plain version's, the bound of the card, and a library call's;
-   flash attention also at a causal prompt of 4096 tokens and at deepseek's and
-   hymba's prefill, paged attention also at qwen2-moe's decode and at 8192
-   tokens of context (planned at R = 4 and R = 1) and at several split counts,
-   the scan also at hymba's prefill.
+   flash attention also at a causal prompt of 4096 tokens (D 64 and D 192), at
+   deepseek's and hymba's prefill and at the training shape (with the LSE), the
+   flash backward at the training shape (library: SDPA's backward), paged
+   attention also at qwen2-moe's decode and at 8192 tokens of context (planned
+   at R = 4 and R = 1) and at several split counts, the scan also at hymba's
+   prefill.
 
 Each phase's seconds are printed as it ends and gathered in a ``phase_seconds``
 line. The last line is ``{"ok": true, "device": {...}}``. Any failure raises
@@ -81,6 +99,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -99,8 +118,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.buffers import copy_parts  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import (attention_ref,  # noqa: E402
-                                                     flash_attention_online)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_ref, flash_attention_bwd_ref, flash_attention_online)
 from repro_torch.kernels.paged_attention import ops as pa  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd  # noqa: E402
@@ -151,20 +170,46 @@ LONG_DECODE = (4, 8192, 16)
 # 1280 is a multiple of its 256-token scan chunk, longer than its 1024-token
 # window and not a multiple of it, so the ring wraps off its slot 0.
 MLA_ARCH, HYBRID_ARCH, MOE_ARCH = "deepseek-v2-lite-16b", "hymba-1.5b", "qwen2-moe-a2.7b"
-SERVE_ARCHS = {   # arch: (batch, prompt, gen, {kernel: launches})
-    "rdmabox-paper-100m": (4, 64, 32, {"flash_attention": 12, "paged_attention": 384,
-                                       "ssd_scan": 0}),
-    "musicgen-large": (4, 64, 32, {"flash_attention": 48, "paged_attention": 1536,
-                                   "ssd_scan": 0}),
-    MOE_ARCH: (4, 64, 32, {"flash_attention": 24, "paged_attention": 768, "ssd_scan": 0}),
-    HYBRID_ARCH: (4, 1280, 32, {"flash_attention": 32, "paged_attention": 0,
-                                "ssd_scan": 32}),
-    MLA_ARCH: (4, 64, 32, {"flash_attention": 27, "paged_attention": 0, "ssd_scan": 0}),
+SERVE_ARCHS = {   # arch: (batch, prompt, gen, {kernel: launches}); serving never
+    # launches the flash backward
+    "rdmabox-paper-100m": (4, 64, 32, {"flash_attention": 12, "flash_attention_bwd": 0,
+                                       "paged_attention": 384, "ssd_scan": 0}),
+    "musicgen-large": (4, 64, 32, {"flash_attention": 48, "flash_attention_bwd": 0,
+                                   "paged_attention": 1536, "ssd_scan": 0}),
+    MOE_ARCH: (4, 64, 32, {"flash_attention": 24, "flash_attention_bwd": 0,
+                           "paged_attention": 768, "ssd_scan": 0}),
+    HYBRID_ARCH: (4, 1280, 32, {"flash_attention": 32, "flash_attention_bwd": 0,
+                                "paged_attention": 0, "ssd_scan": 32}),
+    MLA_ARCH: (4, 64, 32, {"flash_attention": 27, "flash_attention_bwd": 0,
+                           "paged_attention": 0, "ssd_scan": 0}),
 }
 # 65-70 GB of bf16 weights each: not served on one 80 GB card
 CPU_ONLY_ARCHS = ("command-r-35b", "qwen1.5-32b", "qwen2.5-32b", "llava-next-34b")
 HYBRID_DECODE = (1280, 256)       # prefill, then decode across the window's wrap
 MLA_DECODE = (32, 32)             # B 1, all experts: prefill, then decode
+# A long causal prompt at deepseek's D 192 (B, S, H = Kh, D), off the main path.
+LONG_PROMPT_MLA = (1, 4096, 16, 192)
+# Training (phases train, train_grads, train_resume): the JAX trainer's
+# default arch at full width and depth, its example's batch and sequence.
+# One checkpoint (and offload of the first moment) at the last step: posting
+# the moment's 121.7K pages takes the host seconds, and in a checkpoint mid-run
+# the steps after it wait for it (PERF.md §5).
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY = (
+    "rdmabox-paper-100m", 8, 512, 30, 30)
+GRADS_BATCH = {"rdmabox-paper-100m": 8, ARCH: 4}   # train_grads: one step each, S 512
+# The flash backward against flash_attention_bwd_ref on the card. f32: both
+# sides sum the same f32 products in other orders (on an H100 they differ by
+# at most ~1e-6 on gradients up to 9 in magnitude). bf16: both
+# compute in f32 from the same bf16 inputs and round each gradient once, so
+# they differ by at most one bf16 step (2^-7 relative) where the two f32 sums
+# straddle a rounding boundary: inside the forward's 2e-2.
+FLASH_BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+LSE_TOL = 1e-5              # the forward's LSE (|LSE| up to ~10) in f32 on both sides
+# Each parameter's gradient through the kernels against the plain versions'
+# on f32 copies, ‖g_kernel − g_plain‖ / ‖g_plain‖: the kernels' f32 paths run
+# the same f32 arithmetic in another order, through 12-24 layers.
+TRAIN_GRAD_TOL = 1e-4
+TRAIN_LOSS_DROP = 0.1       # tests/test_system.py::test_training_reduces_loss
 
 
 def emit(obj: dict) -> None:
@@ -268,11 +313,14 @@ def phase_compare(dev: torch.device) -> dict:
                True, None)
     B, S, H, D = LONG_PROMPT
     long_prompt = (B, S, S, H, H, D, True, None)
+    B, S, H, D = LONG_PROMPT_MLA
+    long_mla = (B, S, S, H, H, D, True, None)
     mla, hybrid = flash_mla_shape(), flash_hybrid_shape()
     for dtype in (torch.float32, torch.bfloat16):
         tol = FLASH_TOL[dtype]
         shapes = [(2, *s) for s in FLASH_SHAPES] + (
-            [long_prompt, hybrid] if dtype == torch.bfloat16 else []) + [mla, serving]
+            [long_prompt, long_mla, hybrid] if dtype == torch.bfloat16 else []) + [
+            mla, serving]
         for B, Sq, Skv, H, Kh, D, causal, window in shapes:
             q = torch.randn(B, Sq, H, D, generator=gen, device=dev).to(dtype)
             k = torch.randn(B, Skv, Kh, D, generator=gen, device=dev).to(dtype)
@@ -284,12 +332,14 @@ def phase_compare(dev: torch.device) -> dict:
             report["flash"].append({"shape": [B, Sq, Skv, H, Kh, D], "causal": causal,
                                     "window": window, "dtype": str(dtype),
                                     "max_abs_err": err})
-            for name, shape in (("flash_long", long_prompt), ("flash_mla", mla),
-                                ("flash_hybrid", hybrid)):
+            for name, shape in (("flash_long", long_prompt), ("flash_long_mla", long_mla),
+                                ("flash_mla", mla), ("flash_hybrid", hybrid)):
                 if (B, Sq, Skv, H, Kh, D, causal, window) == shape:
                     main_err[(name, dtype)] = err
             del q, k, v, out
         main_err[("flash", dtype)] = err          # the serving shape comes last
+    report["flash_bwd"], main_err[("flash_train", torch.bfloat16)], \
+        main_err[("flash_bwd", torch.bfloat16)] = compare_flash_bwd(dev, gen)
     for dtype in (torch.float32, torch.bfloat16):
         tol = PAGED_TOL[dtype]
         B, H, Kh, D, T, P, Pmax = 3, 8, 4, 32, 8, 40, 6
@@ -539,8 +589,8 @@ def phase_serve(dev: torch.device) -> dict:
     res = serve.main(args + ["--gen", str(GEN)])
     torch.cuda.synchronize()
     launches = read_launches()
-    want = {"flash_attention": cfg.num_layers, "paged_attention": cfg.num_layers * GEN,
-            "ssd_scan": 0}
+    want = {"flash_attention": cfg.num_layers, "flash_attention_bwd": 0,
+            "paged_attention": cfg.num_layers * GEN, "ssd_scan": 0}
     if launches != want:
         raise AssertionError(f"serving path launches {launches}, want {want}")
     logits = res.decode_logits.float()
@@ -561,7 +611,10 @@ def phase_serve(dev: torch.device) -> dict:
     return {"launches": launches, "model": res.model, "prompts": res.prompts}
 
 
-LAUNCH_COUNTERS = {"flash_attention": fa, "paged_attention": pa, "ssd_scan": ssd}
+# kernel → (wrapper module, its counter): each adds one where it launches
+LAUNCH_COUNTERS = {"flash_attention": (fa, "launches"),
+                   "flash_attention_bwd": (fa, "bwd_launches"),
+                   "paged_attention": (pa, "launches"), "ssd_scan": (ssd, "launches")}
 
 
 def rel_err(full: torch.Tensor, dec: torch.Tensor) -> float:
@@ -621,18 +674,22 @@ def phase_serve_archs() -> dict:
 
 
 @contextlib.contextmanager
-def plain_prefill_kernels():
-    """Within the block, flash attention and the scan run their plain versions
-    (those the CPU path runs) on the card's tensors, and launch nothing."""
-    saved = fa._launch, ssd._launch
-    fa._launch = lambda q, k, v, causal, window: flash_attention_online(
-        q, k, v, causal=causal, window=window, q_offset=k.shape[1] - q.shape[1])
+def plain_kernels():
+    """Within the block, flash attention (forward and backward) and the scan
+    run their plain versions (those the CPU path runs) on the card's tensors,
+    and launch nothing."""
+    saved = fa._launch, fa._launch_bwd, ssd._launch
+    fa._launch = lambda q, k, v, causal, window, with_lse=False: flash_attention_online(
+        q, k, v, causal=causal, window=window, q_offset=k.shape[1] - q.shape[1],
+        return_lse=with_lse)
+    fa._launch_bwd = lambda q, k, v, o, lse, do, causal, window: flash_attention_bwd_ref(
+        q, k, v, o, lse, do, causal=causal, window=window, q_offset=k.shape[1] - q.shape[1])
     ssd._launch = lambda x, Bm, Cm, dt, A, chunk, return_state: ssd_chunked(
         x, Bm, Cm, dt, A, chunk=chunk)
     try:
         yield
     finally:
-        fa._launch, ssd._launch = saved
+        fa._launch, fa._launch_bwd, ssd._launch = saved
 
 
 # (run, dtype, plain): the serving path in bf16, the same with its prefill
@@ -658,7 +715,7 @@ def decode_vs_forward(cfg, prompt: int, steps: int, seed: int) -> dict:
         if dtype == "f32":
             model.float()
         reset_launches()
-        with plain_prefill_kernels() if plain else contextlib.nullcontext():
+        with plain_kernels() if plain else contextlib.nullcontext():
             cache = model.init_cache(1, prompt + steps)
             model.prefill(toks[:, :prompt], cache)
             dec = torch.stack([model.decode_step(cache, toks[:, prompt + i],
@@ -721,12 +778,12 @@ def phase_mla_decode() -> None:
 
 
 def reset_launches() -> None:
-    for mod in LAUNCH_COUNTERS.values():
-        mod.launches = 0
+    for mod, counter in LAUNCH_COUNTERS.values():
+        setattr(mod, counter, 0)
 
 
 def read_launches() -> dict:
-    return {name: mod.launches for name, mod in LAUNCH_COUNTERS.items()}
+    return {name: getattr(mod, counter) for name, (mod, counter) in LAUNCH_COUNTERS.items()}
 
 
 @torch.no_grad()
@@ -745,7 +802,8 @@ def phase_serve_ssm() -> dict:
     res = serve.main(args + ["--gen", str(SSM_GEN)])
     torch.cuda.synchronize()
     launches = read_launches()
-    want = {"flash_attention": 0, "paged_attention": 0, "ssd_scan": cfg.num_layers}
+    want = {"flash_attention": 0, "flash_attention_bwd": 0, "paged_attention": 0,
+            "ssd_scan": cfg.num_layers}
     if launches != want:
         raise AssertionError(f"SSM serving path launches {launches}, want {want}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -869,9 +927,10 @@ def attended_pairs(S: int, window) -> int:
 
 
 def flash_row(dev, gen, B: int, S: int, H: int, Kh: int, D: int, launches: int,
-              err: float, case: str, window=None) -> dict:
+              err: float, case: str, window=None, lse: bool = False) -> dict:
     """The flash kernel's row of the kernels line: causal bf16 prefill of S
-    tokens, GQA H/Kh, an optional window. Its library call is SDPA: with
+    tokens, GQA H/Kh, an optional window; with ``lse`` the training forward,
+    which also writes each row's LSE. Its library call is SDPA: with
     ``is_causal`` when every head reads its own KV head and there is no
     window, else with an explicit boolean mask and the KV heads repeated."""
     dt = torch.bfloat16
@@ -894,20 +953,26 @@ def flash_row(dev, gen, B: int, S: int, H: int, Kh: int, D: int, launches: int,
             return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
                                                                     attn_mask=mask)
     elem = torch.finfo(dt).bits // 8
-    flash_bytes = (2 * q.numel() + k.numel() + v.numel()) * elem
+    flash_bytes = (2 * q.numel() + k.numel() + v.numel()) * elem + lse * B * H * S * 4
     flash_flops = 4 * D * B * H * attended_pairs(S, window)   # QK^T and PV
     fb, fby = bound_ms(flash_bytes, flash_flops, dt)
+    if lse:
+        def kernel():
+            return fa._launch(q, k, v, True, window, with_lse=True)
+    else:
+        def kernel():
+            return fa.flash_attention_op(q, k, v, causal=True, window=window)
     row = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:82",
         "launches": launches, "max_abs_err": err,
-        "ms": device_ms(lambda: fa.flash_attention_op(q, k, v, causal=True, window=window)),
+        "ms": device_ms(kernel),
         "plain_ms": device_ms(lambda: attention_ref(q, k, v, causal=True, window=window),
                               iters=20 if S <= 1024 else 2),
         "bound_ms": fb, "bound_by": fby, "library_ms": device_ms(library),
         "case": case, "shape": {"q": list(q.shape), "kv": list(k.shape), "window": window,
-                                "dtype": "bf16"},
+                                "dtype": "bf16", "lse": lse},
     }
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
@@ -972,7 +1037,7 @@ def paged_row(q, kv, lengths, plan, live_blocks, launches: int, err: float, case
 
 
 def phase_kernels(dev: torch.device, main_err: dict, launches: dict,
-                  kv_spill_launches: int, arch_launches: dict) -> None:
+                  kv_spill_launches: int, arch_launches: dict, train_launches: dict) -> None:
     cfg = get_config(ARCH)
     gen = torch.Generator(device=dev).manual_seed(1)
     dt = torch.bfloat16
@@ -992,6 +1057,17 @@ def phase_kernels(dev: torch.device, main_err: dict, launches: dict,
                              arch_launches[HYBRID_ARCH]["flash_attention"],
                              main_err[("flash_hybrid", dt)],
                              f"serving: {HYBRID_ARCH} prefill, window {W}", window=W)
+    B, S, Hm, Dm = LONG_PROMPT_MLA
+    flash_long_mla = flash_row(dev, gen, B, S, Hm, Hm, Dm,
+                               arch_launches[MLA_ARCH]["flash_attention"],
+                               main_err[("flash_long_mla", dt)], "long prompt, causal, D 192")
+    tc = get_config(TRAIN_ARCH)
+    flash_train = flash_row(dev, gen, TRAIN_BATCH, TRAIN_SEQ, tc.num_heads, tc.num_kv_heads,
+                            tc.head_dim, train_launches["flash_attention"],
+                            main_err[("flash_train", dt)],
+                            f"training: {TRAIN_ARCH} forward, with the LSE", lse=True)
+    flash_bwd = flash_bwd_row(dev, gen, train_launches["flash_attention_bwd"],
+                              main_err[("flash_bwd", dt)])
     pq, pkv, lengths, plan = paged_inputs(dev, gen, dt)
     live = -(-(PROMPT + GEN) // (PAGE_TOKENS * 4))   # as the last decode step plans it
     paged = paged_row(pq, pkv, lengths, plan, live, launches["paged_attention"],
@@ -1034,8 +1110,8 @@ def phase_kernels(dev: torch.device, main_err: dict, launches: dict,
                            arch_launches[HYBRID_ARCH]["ssd_scan"],
                            main_err[("ssd_hybrid", torch.float32)],
                            f"serving: {HYBRID_ARCH} prefill")
-    emit({"kernels": [flash, flash_long, flash_mla, flash_hybrid, paged, paged_moe,
-                      paged_long, scan, scan_hybrid]})
+    emit({"kernels": [flash, flash_long, flash_mla, flash_hybrid, flash_long_mla, flash_train,
+                      flash_bwd, paged, paged_moe, paged_long, scan, scan_hybrid]})
 
 
 def check_engine_clean(stats: dict, what: str) -> dict:
@@ -1076,8 +1152,8 @@ def phase_serve_spill() -> dict:
                       "--donors", "3", "--replication", "2", "--clients", "2"])
     torch.cuda.synchronize()
     launches = read_launches()
-    want = {"flash_attention": cfg.num_layers, "paged_attention": cfg.num_layers * GEN,
-            "ssd_scan": 0}
+    want = {"flash_attention": cfg.num_layers, "flash_attention_bwd": 0,
+            "paged_attention": cfg.num_layers * GEN, "ssd_scan": 0}
     if launches != want:
         raise AssertionError(f"serve --spill launches {launches}, want {want}")
     sp = res.spill
@@ -1302,8 +1378,8 @@ def phase_examples() -> None:
     launches = read_launches()
     ends_with(out, "SERVING DONE", "serve_paged")
     gen = served.decode_logits.shape[1]
-    want = {"flash_attention": cfg.num_layers, "paged_attention": cfg.num_layers * gen,
-            "ssd_scan": 0}
+    want = {"flash_attention": cfg.num_layers, "flash_attention_bwd": 0,
+            "paged_attention": cfg.num_layers * gen, "ssd_scan": 0}
     if launches != want or not launches["paged_attention"]:
         raise AssertionError(f"serve_paged launches {launches}, want {want}")
     if served.spill is None or served.spill.kv.pool.device.type != "cuda" or not same_bytes(
@@ -1335,6 +1411,354 @@ def phase_examples() -> None:
               "points": len(plan["rows"]),
               "sweep_eval_ms": sum(r["eval_ms"] for r in plan["rows"]),
               "threads_before_after": [threads, threading.active_count()]}})
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def flash_bwd_shapes() -> list:
+    """(case, B, Sq, Skv, H, Kh, D, causal, window) of the backward's checks:
+    the reference suite's flash shapes, rdmabox-paper-100m's training shape,
+    qwen1.5-0.5b's heads (H = Kh = 16), hymba's window and deepseek's D 192."""
+    tc, qc, hc = get_config(TRAIN_ARCH), get_config(ARCH), get_config(HYBRID_ARCH)
+    return ([("reference shape", 2, *s) for s in FLASH_SHAPES] + [
+        ("train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, tc.num_heads, tc.num_kv_heads,
+         tc.head_dim, True, None),
+        (f"{ARCH} heads", GRADS_BATCH[ARCH], TRAIN_SEQ, TRAIN_SEQ, qc.num_heads,
+         qc.num_kv_heads, qc.head_dim, True, None),
+        (f"{HYBRID_ARCH} window", 1, 1280, 1280, hc.num_heads, hc.num_kv_heads, hc.head_dim,
+         True, hc.window),
+        (f"{MLA_ARCH} D 192", *flash_mla_shape())])
+
+
+def compare_flash_bwd(dev, gen) -> tuple[list, float, float]:
+    """The forward's LSE and the backward kernel against their plain versions
+    in f32 and bf16, the backward run twice and held to equal bits, and the
+    forward with the LSE held equal to the forward without it. Returns
+    (report, max |err| of the training shape's bf16 forward, of its backward)."""
+    report, fwd_err, bwd_err = [], None, None
+    for case, B, Sq, Skv, H, Kh, D, causal, window in flash_bwd_shapes():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, do = (torch.randn(B, Sq, H, D, generator=gen, device=dev).to(dtype)
+                     for _ in range(2))
+            k, v = (torch.randn(B, Skv, Kh, D, generator=gen, device=dev).to(dtype)
+                    for _ in range(2))
+            what = f"flash bwd {dtype} {case} {(B, Sq, Skv, H, Kh, D, causal, window)}"
+            o, lse = fa._launch(q, k, v, causal, window, with_lse=True)
+            if not torch.equal(o, fa._launch(q, k, v, causal, window)):
+                raise AssertionError(f"{what}: the forward with the LSE differs")
+            grads = fa._launch_bwd(q, k, v, o, lse, do, causal, window)
+            again = fa._launch_bwd(q, k, v, o, lse, do, causal, window)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                raise AssertionError(f"{what}: two runs gave different bits")
+            o_plain, lse_plain = flash_attention_online(
+                q, k, v, causal=causal, window=window, q_offset=Skv - Sq, return_lse=True)
+            plain = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                            window=window, q_offset=Skv - Sq)
+            tol = FLASH_BWD_TOL[dtype]
+            row = {"case": case, "shape": [B, Sq, Skv, H, Kh, D], "causal": causal,
+                   "window": window, "dtype": str(dtype), "tol": tol,
+                   "lse_max_abs_err": max_err(lse, lse_plain, LSE_TOL, what + " LSE"),
+                   "o_max_abs_err": max_err(o, o_plain, FLASH_TOL[dtype], what + " o"),
+                   "bitwise_repeatable": True}
+            for name, g, p in zip(("dq", "dk", "dv"), grads, plain):
+                row[f"{name}_max_abs_err"] = max_err(g, p, tol, f"{what} {name}")
+            report.append(row)
+            if case == "train" and dtype == torch.bfloat16:
+                fwd_err = row["o_max_abs_err"]
+                bwd_err = max(row[f"{n}_max_abs_err"] for n in ("dq", "dk", "dv"))
+            del q, k, v, do, o, lse, grads, again, plain, o_plain, lse_plain
+    torch.cuda.empty_cache()
+    return report, fwd_err, bwd_err
+
+
+def train_args(ckpt: Path, steps: int, *extra: str) -> list:
+    return ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--steps", str(steps), "--ckpt-every", str(TRAIN_CKPT_EVERY), "--ckpt-dir",
+            str(ckpt), "--log-every", "5", *extra]
+
+
+def hold_train_launches(what: str, launches: dict, steps: int, forwards: int) -> None:
+    """``forwards`` flash forwards a layer a step (2 with --remat full), one
+    backward a layer a step, no paged or scan launch."""
+    layers = get_config(TRAIN_ARCH).num_layers
+    want = {"flash_attention": forwards * layers * steps,
+            "flash_attention_bwd": layers * steps, "paged_attention": 0, "ssd_scan": 0}
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, want {want}")
+
+
+def phase_train() -> dict:
+    """``launch.train.main`` at full width (rdmabox-paper-100m, B 8, S 512) with
+    --offload, its launches reset just before and held per step just after;
+    the loss finite at every step and falling by the reference test's rule.
+    Then 2 steps with --remat full (each block's forward runs again in the
+    backward). Returns the main run's launches."""
+    from repro_torch.launch import train
+    cfg = get_config(TRAIN_ARCH)
+    ckpt = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res, out, wall = run_captured(train.main, train_args(ckpt, TRAIN_STEPS, "--offload"))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hold_train_launches("train", launches, TRAIN_STEPS, 1)
+    ends_with(out, "TRAINING DONE", "train")
+    losses = res.losses
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"train: losses {losses}")
+    first, last = float(losses[:5].mean()), float(losses[-5:].mean())
+    if not last < first - TRAIN_LOSS_DROP:
+        raise AssertionError(f"train: mean loss of the last 5 steps {last:.4f} not below "
+                             f"the first 5's {first:.4f} by {TRAIN_LOSS_DROP}")
+    if not res.offload or res.offload["rdma_ops"] <= 0:
+        raise AssertionError(f"train --offload: {res.offload}")
+    step_s = (res.seconds - res.first_step_s) / (TRAIN_STEPS - 1)
+    tokens_a_step = TRAIN_BATCH * TRAIN_SEQ
+    print(f"train: {step_s:.6f} s a step after the first ({res.first_step_s:.3f} s), "
+          f"{tokens_a_step / step_s:,.0f} tok/s, peak {peak_gb:.2f} GB, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; checkpoint, offload and flush after "
+          f"the last step {wall - res.seconds:.3f} s")
+    profile = profile_train(res.model, res.opt_state)
+    emit({"phase": "train", "arch": TRAIN_ARCH, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "params": sum(p.numel() for p in res.model.parameters()),
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+          "step_s": step_s, "first_step_s": res.first_step_s,
+          "train_tok_s": tokens_a_step / step_s, "seconds": res.seconds,
+          "after_steps_s": wall - res.seconds, "losses": losses.tolist(),
+          "mean_first5": first, "mean_last5": last, "launches": launches,
+          "offload": res.offload, "peak_mem_gb": peak_gb, "profile": profile})
+    del res
+    torch.cuda.empty_cache()
+    reset_launches()
+    remat_ckpt = ROOT / "build" / "chip_smoke_train_remat"
+    shutil.rmtree(remat_ckpt, ignore_errors=True)
+    res, out, _ = run_captured(train.main, train_args(remat_ckpt, 2, "--remat", "full"))
+    torch.cuda.synchronize()
+    remat = read_launches()
+    hold_train_launches("train --remat full", remat, 2, 2)
+    if not np.isfinite(res.losses).all():
+        raise AssertionError(f"train --remat full: losses {res.losses}")
+    emit({"phase": "train_remat", "steps": 2, "launches": remat,
+          "losses": res.losses.tolist()})
+    del res
+    for d in (ckpt, remat_ckpt):
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_train(model, opt_state) -> dict:
+    """Device time by kernel over 2 train steps after one warm step, from the
+    trained model and state (torch.profiler), and the flash kernels' share."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.steps import build_train_step
+    step_fn = build_train_step(model.cfg, RunConfig(total_steps=TRAIN_STEPS + 3,
+                                                    warmup_steps=10))
+    data = SyntheticTokens(DataConfig(model.cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH))
+    state = {"opt": opt_state}
+
+    def steps(start: int, n: int) -> None:
+        for i in range(n):
+            state["opt"], _ = step_fn(model, state["opt"], data.batch_at(start + i))
+
+    steps(TRAIN_STEPS, 1)
+    torch.cuda.synchronize()
+    rows, wall = profiled(lambda: steps(TRAIN_STEPS + 1, 2))
+    out = profile_summary(rows, wall, 2)
+    for name, key in (("flash_bwd_device_ms", "flash_bwd"),
+                      ("flash_fwd_device_ms", "flash_attention_bf16")):
+        out[name] = sum(r["device_us"] for r in rows if key in r["name"]) / 1e3 / 2
+    out["device_ms_a_step"] = out["device_busy_ms"] / 2
+    print(f"train profile: {out['wall_ms'] / 2:.3f} ms a step, device busy "
+          f"{out['device_ms_a_step']:.3f} ms (flash backward {out['flash_bwd_device_ms']:.3f},"
+          f" forward {out['flash_fwd_device_ms']:.3f}), idle share "
+          f"{out['device_idle_share']:.3f}, {out['kernels_per_step']:.0f} kernels a step")
+    return out
+
+
+def grads_once(model, tokens, targets, plain: bool) -> tuple[dict, float, dict]:
+    """One forward and backward of ``loss_fn``: (gradient by parameter, loss,
+    launches); with ``plain`` flash runs its plain versions on the card."""
+    from repro_torch.models import loss_fn
+    model.zero_grad(set_to_none=True)
+    reset_launches()
+    with plain_kernels() if plain else contextlib.nullcontext():
+        loss, _ = loss_fn(model, tokens, targets)
+        loss.backward()
+    torch.cuda.synchronize()
+    launched = read_launches()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return grads, float(loss), launched
+
+
+def phase_train_grads() -> None:
+    """Every parameter's gradient through the kernels against the gradient
+    with flash swapped for its plain version on the card, one step at full
+    width of rdmabox-paper-100m and qwen1.5-0.5b: printed in bf16, held on an
+    f32 copy (finite, nonzero, within TRAIN_GRAD_TOL in relative norm)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models import init_transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch, B in GRADS_BATCH.items():
+        cfg = get_config(arch)
+        batch = SyntheticTokens(DataConfig(cfg.vocab_size, TRAIN_SEQ, B)).batch_at(0)
+        tokens = torch.from_numpy(batch["tokens"]).long().cuda()
+        targets = torch.from_numpy(batch["targets"]).long().cuda()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = init_transformer(cfg, seed=0, device="cuda").requires_grad_(True)
+        out = {"phase": "train_grads", "arch": arch, "batch": B, "seq": TRAIN_SEQ,
+               "tol_f32": TRAIN_GRAD_TOL}
+        for dtype in ("bf16", "f32"):
+            if dtype == "f32":
+                model.float()
+            kernel, loss_k, launched_k = grads_once(model, tokens, targets, plain=False)
+            plain, loss_p, launched_p = grads_once(model, tokens, targets, plain=True)
+            want = {"flash_attention": cfg.num_layers,
+                    "flash_attention_bwd": cfg.num_layers, "paged_attention": 0,
+                    "ssd_scan": 0}
+            if launched_k != want or any(launched_p.values()):
+                raise AssertionError(f"{arch} {dtype}: launches {launched_k} with the "
+                                     f"kernels, {launched_p} without")
+            errs, norms = {}, {}
+            for name, g in kernel.items():
+                p = plain[name]
+                if g is None or p is None:
+                    raise AssertionError(f"{arch} {dtype}: {name} got no gradient")
+                gf, pf = g.float(), p.float()
+                norms[name] = float(gf.norm())
+                errs[name] = float((gf - pf).norm() / pf.norm().clamp(min=1e-30))
+                if dtype == "f32" and not (torch.isfinite(gf).all() and norms[name] > 0
+                                           and errs[name] <= TRAIN_GRAD_TOL):
+                    raise AssertionError(f"{arch} f32 {name}: norm {norms[name]:.3e}, "
+                                         f"relative error {errs[name]:.3e}")
+            worst = max(errs, key=errs.get)
+            print(f"train_grads {arch} {dtype}: {len(errs)} parameters, worst relative "
+                  f"error {errs[worst]:.3e} ({worst}), loss {loss_k:.6f} vs plain "
+                  f"{loss_p:.6f}" + (" (held)" if dtype == "f32" else ""))
+            out[dtype] = {"parameters": len(errs), "max_rel_err": errs[worst],
+                          "worst": worst, "min_grad_norm": min(norms.values()),
+                          "loss_kernels": loss_k, "loss_plain": loss_p,
+                          "attention_rel_err": {n: e for n, e in errs.items()
+                                                if ".attn." in n and n.startswith("blocks.0.")},
+                          "launches": launched_k}
+            del kernel, plain
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        emit(out)
+        del model
+        torch.cuda.empty_cache()
+
+
+def phase_train_resume() -> None:
+    """Bit-exact resume on the card: rdmabox-paper-100m's width with 2 layers,
+    6 straight steps against 3, a checkpoint, a new process state restored
+    from it, and 3 more; ``torch.equal`` on every parameter and moment."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import RunConfig, replace
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import init_transformer
+    from repro_torch.optim import adamw
+    cfg = replace(get_config(TRAIN_ARCH), num_layers=2)
+    run = RunConfig(learning_rate=3e-4, total_steps=6, warmup_steps=2)
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH))
+    root = ROOT / "build" / "chip_smoke_resume"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def steps(start: int, stop: int, ckpt: Checkpointer, resume: bool):
+        model = init_transformer(cfg, seed=0, device="cuda").requires_grad_(True)
+        params = dict(model.named_parameters())
+        opt = adamw.init(params, run)
+        if resume:
+            at, (saved, opt), _ = ckpt.restore_latest((params, opt))
+            if at != start:
+                raise AssertionError(f"train_resume: restored step {at}, want {start}")
+            with torch.no_grad():
+                for n, p in params.items():
+                    p.copy_(saved[n])
+        step_fn = build_train_step(cfg, run)
+        for step in range(start, stop):
+            opt, _ = step_fn(model, opt, data.batch_at(step))
+        ckpt.save(stop, (params, opt))
+        return model, opt
+
+    straight, opt_a = steps(0, 6, Checkpointer(str(root / "a"), keep=1), False)
+    ck = Checkpointer(str(root / "b"), keep=1)
+    steps(0, 3, ck, False)
+    resumed, opt_b = steps(3, 6, ck, True)
+    torch.cuda.synchronize()
+    params = [n for (n, a), b in zip(straight.named_parameters(), resumed.parameters())
+              if not torch.equal(a, b)]
+    moments = [n for n in opt_a.m if not (torch.equal(opt_a.m[n], opt_b.m[n])
+                                          and torch.equal(opt_a.v[n], opt_b.v[n]))]
+    shutil.rmtree(root, ignore_errors=True)
+    if params or moments:
+        raise AssertionError(f"train_resume: not bit-exact: parameters {params}, "
+                             f"moments {moments}")
+    emit({"phase": "train_resume", "arch": TRAIN_ARCH, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "steps": "6 straight vs 3 + resume 3", "bit_exact": True,
+          "parameters": len(list(straight.parameters()))})
+    del straight, resumed, opt_a, opt_b
+    torch.cuda.empty_cache()
+
+
+def flash_bwd_row(dev, gen, launches: int, err: float) -> dict:
+    """The flash backward's row of the kernels line at the training shape,
+    bf16. Bound: q, k, v, o, dO, LSE, Δ read and dq, dk, dv written once, and
+    five products of 2·D flops a visible (query, key) pair. Library: the
+    backward of ``scaled_dot_product_attention`` (flash, ``is_causal``) on the
+    same tensors with the KV heads repeated (its dk, dv stay per query head):
+    a CUDA graph of its forward and backward less one of its forward alone."""
+    cfg = get_config(TRAIN_ARCH)
+    B, S, H, Kh, D = TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dt = torch.bfloat16
+    q, do = (torch.randn(B, S, H, D, generator=gen, device=dev).to(dt) for _ in range(2))
+    k, v = (torch.randn(B, S, Kh, D, generator=gen, device=dev).to(dt) for _ in range(2))
+    o, lse = fa._launch(q, k, v, True, None, with_lse=True)
+    elem = torch.finfo(dt).bits // 8
+    nbytes = (4 * q.numel() + 4 * k.numel()) * elem + 2 * lse.numel() * 4
+    flops = 10 * D * B * H * attended_pairs(S, None)
+    bb, bby = bound_ms(nbytes, flops, dt)
+    qt, kt, vt = (x.repeat_interleave(H // x.shape[2], dim=2).transpose(1, 2).contiguous()
+                  .requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+    with torch.no_grad():
+        sdpa_fwd_ms = device_ms(sdpa)
+    sdpa_both_ms = device_ms(sdpa_fwd_bwd)
+    row = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:65",
+        "launches": launches, "max_abs_err": err,
+        "ms": device_ms(lambda: fa._launch_bwd(q, k, v, o, lse, do, True, None)),
+        "plain_ms": device_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do)),
+        "bound_ms": bb, "bound_by": bby, "library_ms": sdpa_both_ms - sdpa_fwd_ms,
+        "library_fwd_bwd_ms": sdpa_both_ms, "library_fwd_ms": sdpa_fwd_ms,
+        "case": f"training: {TRAIN_ARCH} backward (autodiff of flash_attention_jnp in "
+                "the reference)",
+        "shape": {"q": list(q.shape), "kv": list(k.shape), "dtype": "bf16",
+                  "bytes": nbytes, "flops": flops},
+    }
+    del q, k, v, do, o, lse, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+    return row
 
 
 def ssd_work(B: int, L: int, H: int, P: int, N: int, K: int) -> tuple[int, int]:
@@ -1392,8 +1816,11 @@ def main() -> None:
     arch_launches = timed("serve_archs", phase_serve_archs)
     timed("hybrid_decode", phase_hybrid_decode)
     timed("mla_decode", phase_mla_decode)
+    train_launches = timed("train", phase_train)
+    timed("train_grads", phase_train_grads)
+    timed("train_resume", phase_train_resume)
     timed("kernels", phase_kernels, dev, main_err, launches, kv_spill_launches,
-          arch_launches)
+          arch_launches, train_launches)
     emit({"phase_seconds": PHASE_SECONDS, "total_s": time.perf_counter() - t_start})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

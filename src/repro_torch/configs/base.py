@@ -136,5 +136,23 @@ class ModelConfig:
         return full - routed_all + routed_active
 
 
+@dataclass(frozen=True)
+class RunConfig:
+    """Training/serving hyperparameters + fault-tolerance knobs."""
+
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    microbatch: Optional[int] = None        # grad-accum microbatch (per step)
+    remat: str = "none"                     # none | full | dots
+    grad_compression: bool = False          # int8 + error feedback all-reduce
+    checkpoint_every: int = 100
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    keep_checkpoints: int = 3
+    seed: int = 0
+
+
 def replace(cfg, **kw):
     return dataclasses.replace(cfg, **kw)

@@ -83,10 +83,11 @@ constexpr int smem_bytes() {
          static_cast<int>(sizeof(float));
 }
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ out, int Sq, int Skv,
+                           const float* __restrict__ v, float* __restrict__ out,
+                           float* __restrict__ lse, int Sq, int Skv,
                        int H, int Kh, int causal, int window, float scale) {
   constexpr int kAcc = D / kLanesPerRow;
   extern __shared__ float smem[];
@@ -174,6 +175,9 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
     float* dst = out + (((long)b * Sq + qi) * H + h) * D;
 #pragma unroll
     for (int e = 0; e < kAcc; ++e) dst[quad + kLanesPerRow * e] = acc[e] * inv;
+    if constexpr (kLse) {
+      if (quad == 0) lse[((long)b * H + h) * Sq + qi] = m + logf(fmaxf(l, 1e-30f));
+    }
   }
 }
 
@@ -185,6 +189,7 @@ constexpr int kTcThreads = 128;                  // four warps of 16 query rows
 constexpr int kTcBlockQ = 64;                    // query rows a tile
 constexpr int kTcBlockK = 64;                    // KV rows a tile
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // bf16 elements of a shared row: D plus 16 bytes of padding
 template <int D>
@@ -251,13 +256,13 @@ __device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat
   }
 }
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kTcThreads)
 flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
-                            __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H, int Kh,
-                            int causal, int window, float scale_log2) {
+                            __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Sq,
+                            int Skv, int H, int Kh, int causal, int window, float scale_log2) {
   constexpr int kS = tc_stride<D>();
   constexpr int kDK = D / 16;                    // k steps of q . K^T
   constexpr int kDN = D / 8;                     // n-tiles of O
@@ -413,6 +418,11 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     const float inv = 1.f / fmaxf(sum, 1e-30f);
+    if constexpr (kLse) {   // m is in log2 units (scale_log2): back to a natural log
+      const int qi = q0 + warp * 16 + g + 8 * rr;
+      if (t == 0 && qi < Sq)
+        lse[((long)b * H + h) * Sq + qi] = (m[rr] + log2f(fmaxf(sum, 1e-30f))) * kLn2;
+    }
     __nv_bfloat16* dst = o_s + (g + 8 * rr) * kS + 2 * t;
 #pragma unroll
     for (int n = 0; n < kDN; ++n)
@@ -428,66 +438,77 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                int Skv, int H, int Kh, int causal, int window, cudaStream_t stream) {
+template <int D, bool kLse>
+int launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                int Sq, int Skv, int H, int Kh, int causal, int window, cudaStream_t stream) {
   constexpr int smem = tc_smem_bytes<D>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_attention_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_attention_bf16_kernel<D, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((Sq + kTcBlockQ - 1) / kTcBlockQ, H, B);
-  flash_attention_bf16_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+  flash_attention_bf16_kernel<D, kLse><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq, Skv, H, Kh,
-      causal, window, kLog2e / sqrtf(static_cast<float>(D)));
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, Sq, Skv,
+      H, Kh, causal, window, kLog2e / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-               int Skv, int H, int Kh, int causal, int window, cudaStream_t stream) {
+template <int D, bool kLse>
+int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+               int Sq, int Skv, int H, int Kh, int causal, int window, cudaStream_t stream) {
   constexpr int smem = smem_bytes<D>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_attention_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_attention_f32_kernel<D, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
-  flash_attention_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_attention_f32_kernel<D, kLse><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H, Kh, causal, window,
-      1.0f / sqrtf(static_cast<float>(D)));
+      static_cast<const float*>(v), static_cast<float*>(out), lse, Sq, Skv, H, Kh, causal,
+      window, 1.0f / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_d(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-               int Skv, int H, int Kh, int D, int causal, int window, bool bf16,
+// one (head dim, dtype) instance; the LSE-writing instances are separate
+// kernels, so serving's (lse == nullptr) code is the same as without them
+template <int D>
+int launch_d(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+             int Sq, int Skv, int H, int Kh, int causal, int window, bool bf16,
+             cudaStream_t s) {
+  if (bf16)
+    return lse ? launch_bf16<D, true>(q, k, v, out, lse, B, Sq, Skv, H, Kh, causal, window, s)
+               : launch_bf16<D, false>(q, k, v, out, lse, B, Sq, Skv, H, Kh, causal, window, s);
+  return lse ? launch_f32<D, true>(q, k, v, out, lse, B, Sq, Skv, H, Kh, causal, window, s)
+             : launch_f32<D, false>(q, k, v, out, lse, B, Sq, Skv, H, Kh, causal, window, s);
+}
+
+int dispatch_d(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+               int Sq, int Skv, int H, int Kh, int D, int causal, int window, bool bf16,
                cudaStream_t s) {
   switch (D) {
-    case 32:
-      return bf16 ? launch_bf16<32>(q, k, v, out, B, Sq, Skv, H, Kh, causal, window, s)
-                  : launch_f32<32>(q, k, v, out, B, Sq, Skv, H, Kh, causal, window, s);
-    case 64:
-      return bf16 ? launch_bf16<64>(q, k, v, out, B, Sq, Skv, H, Kh, causal, window, s)
-                  : launch_f32<64>(q, k, v, out, B, Sq, Skv, H, Kh, causal, window, s);
+    case 32: return launch_d<32>(q, k, v, out, lse, B, Sq, Skv, H, Kh, causal, window, bf16, s);
+    case 64: return launch_d<64>(q, k, v, out, lse, B, Sq, Skv, H, Kh, causal, window, bf16, s);
     case 128:
-      return bf16 ? launch_bf16<128>(q, k, v, out, B, Sq, Skv, H, Kh, causal, window, s)
-                  : launch_f32<128>(q, k, v, out, B, Sq, Skv, H, Kh, causal, window, s);
+      return launch_d<128>(q, k, v, out, lse, B, Sq, Skv, H, Kh, causal, window, bf16, s);
     case 192:   // MLA's prefill: qk_nope + qk_rope, V padded up to it
-      return bf16 ? launch_bf16<192>(q, k, v, out, B, Sq, Skv, H, Kh, causal, window, s)
-                  : launch_f32<192>(q, k, v, out, B, Sq, Skv, H, Kh, causal, window, s);
+      return launch_d<192>(q, k, v, out, lse, B, Sq, Skv, H, Kh, causal, window, bf16, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// window <= 0 means no sliding window. Returns cudaGetLastError() after the
-// launch (0 = launched).
+// window <= 0 means no sliding window. With a non-null ``lse`` the kernel
+// also writes each query row's log-sum-exp of its scaled scores, (B, H, Sq)
+// f32 in natural log, log(max(l, 1e-30)) + m, for the backward
+// (flash_attention_bwd.cu); serving passes null. Returns cudaGetLastError()
+// after the launch (0 = launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* out, int B, int Sq, int Skv, int H, int Kh,
-                                   int D, int causal, int window, int is_bf16,
+                                   void* out, void* lse, int B, int Sq, int Skv, int H,
+                                   int Kh, int D, int causal, int window, int is_bf16,
                                    void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Kh <= 0 || H % Kh != 0 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch_d(q, k, v, out, B, Sq, Skv, H, Kh, D, causal, window, is_bf16 != 0,
-                    static_cast<cudaStream_t>(stream));
+  return dispatch_d(q, k, v, out, static_cast<float*>(lse), B, Sq, Skv, H, Kh, D, causal,
+                    window, is_bf16 != 0, static_cast<cudaStream_t>(stream));
 }

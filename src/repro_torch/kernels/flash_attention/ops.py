@@ -1,25 +1,34 @@
-"""Wrapper for the flash attention kernel.
+"""Wrapper for the flash attention kernels, forward and backward.
 
 ``flash_attention_op`` launches ``csrc/flash_attention.cu`` on CUDA
 tensors and adds one to ``launches``; on CPU tensors it runs the kernel's
 plain version, ``flash_attention_online`` with the kernel's alignment of
 query row i at position ``i + Skv − Sq``.
+
+When an input requires a gradient (and autograd is on) the call goes
+through ``FlashAttention``, a ``torch.autograd.Function``: its forward also
+keeps each query row's log-sum-exp, and its backward launches
+``csrc/flash_attention_bwd.cu`` on CUDA tensors (one count in
+``bwd_launches`` a call) or runs ``flash_attention_bwd_ref`` on CPU
+tensors. Otherwise (serving, ``torch.no_grad()``) nothing is saved and the
+forward launches exactly as it does without autograd.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from .. import _build
-from .ref import flash_attention_online
+from .ref import flash_attention_bwd_ref, flash_attention_online
 
 HEAD_DIMS = (32, 64, 128, 192)      # 192: MLA's qk_nope + qk_rope
 
-launches = 0                        # kernel launches since the last reset
+launches = 0                        # forward kernel launches since the last reset
+bwd_launches = 0                    # backward kernel calls since the last reset
 
 
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -28,14 +37,44 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Sq, H, D); k, v: (B, Skv, Kh, D). Returns (B, Sq, H, D)."""
     if window is not None and window < 1:
         raise ValueError(f"window must be ≥ 1 or None, got {window}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window)
     if q.device.type == "cpu":
         return flash_attention_online(q, k, v, causal=causal, window=window,
                                       q_offset=k.shape[1] - q.shape[1])
     return _launch(q, k, v, causal, window)
 
 
-def _launch(q, k, v, causal: bool, window: Optional[int]) -> torch.Tensor:
-    global launches
+class FlashAttention(torch.autograd.Function):
+    """Attention whose gradient is the backward kernel (the plain backward on
+    the CPU), from q, k, v, the output and the forward's LSE."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_online(q, k, v, causal=causal, window=window,
+                                              q_offset=k.shape[1] - q.shape[1],
+                                              return_lse=True)
+        else:
+            out, lse = _launch(q, k, v, causal, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=ctx.causal,
+                                                 window=ctx.window,
+                                                 q_offset=k.shape[1] - q.shape[1])
+        else:
+            dq, dk, dv = _launch_bwd(q, k, v, out, lse, dout, ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
+
+
+def _check(q, k, v) -> None:
     B, Sq, H, D = q.shape
     Bk, Skv, Kh, Dk = k.shape
     if q.dtype not in (torch.float32, torch.bfloat16) or not (
@@ -46,23 +85,68 @@ def _launch(q, k, v, causal: bool, window: Optional[int]) -> torch.Tensor:
             or D not in HEAD_DIMS):
         raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} (D in {HEAD_DIMS})")
-    if any(t.device != q.device or not t.is_contiguous() for t in (q, k, v)):
-        raise ValueError("flash_attention takes contiguous tensors on one device")
+    if any(t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16
+           for t in (q, k, v)):
+        raise ValueError("flash_attention takes contiguous, 16-byte aligned tensors "
+                         "on one device")
+
+
+def _launch(q, k, v, causal: bool, window: Optional[int], with_lse: bool = False):
+    global launches
+    _check(q, k, v)
+    B, Sq, H, D = q.shape
+    Skv, Kh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if with_lse else None
     rc = _lib().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         B, Sq, Skv, H, Kh, D, int(causal), window or 0,
         int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attention_fwd")
     launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def _launch_bwd(q, k, v, out, lse, dout, causal: bool, window: Optional[int]
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    global bwd_launches
+    _check(q, k, v)
+    B, Sq, H, D = q.shape
+    Skv, Kh = k.shape[1], k.shape[2]
+    if (out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype
+            or dout.dtype != q.dtype or lse.shape != (B, H, Sq)
+            or lse.dtype != torch.float32
+            or any(t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16
+                   for t in (out, dout, lse))):
+        raise ValueError("flash_attention backward: o and dO shaped and typed as q, "
+                         "LSE (B, H, Sq) f32, all contiguous on q's device")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    rc = _lib_bwd().flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, Sq, Skv, H, Kh, D, int(causal), window or 0, int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "flash_attention_bwd")
+    bwd_launches += 1
+    return dq, dk, dv
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
-    lib.flash_attention_fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+    lib.flash_attention_fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                                         + [ctypes.c_void_p])
     lib.flash_attention_fwd.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd")
+    lib.flash_attention_bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                                        + [ctypes.c_void_p])
+    lib.flash_attention_bwd.restype = ctypes.c_int
     return lib

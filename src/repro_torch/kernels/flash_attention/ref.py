@@ -4,18 +4,34 @@
 ``kernels/flash_attention/ref.py`` (one masked softmax over all keys).
 ``flash_attention_online`` is the twin of ``models/attention.py``'s
 ``flash_attention_jnp`` without its sliced sliding-window branch: the
-same block-by-block online softmax that the CUDA kernel runs.
+same block-by-block online softmax that the CUDA kernel runs; with
+``return_lse`` it also returns what the backward needs, each query row's
+log-sum-exp. ``flash_attention_bwd_ref`` is the backward kernel's plain
+version: the explicit gradient from q, k, v, o and that LSE.
 
 q: (B, Sq, H, D); k, v: (B, Skv, Kh, D). Causal + optional sliding window.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 
 NEG_INF = -1e30
+
+
+def _mask(Sq: int, Skv: int, causal: bool, window: Optional[int], q_offset: int,
+          device) -> torch.Tensor:
+    """(Sq, Skv) bool: query i at ``q_offset + i`` may see key j."""
+    q_pos = q_offset + torch.arange(Sq, device=device)[:, None]
+    kv_pos = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kv_pos <= q_pos
+    if window is not None:
+        mask &= kv_pos > q_pos - window
+    return mask
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -27,13 +43,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kk = k.repeat_interleave(G, dim=2).float()
     vv = v.repeat_interleave(G, dim=2).float()
     s = torch.einsum("bqhd,bthd->bhqt", q.float(), kk) * D ** -0.5
-    qpos = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
-    kpos = torch.arange(Skv, device=q.device)[None, :]
-    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window is not None:
-        mask &= kpos > qpos - window
+    mask = _mask(Sq, Skv, causal, window, Skv - Sq, q.device)
     s = torch.where(mask[None, None], s, NEG_INF)
     out = torch.einsum("bhqt,bthd->bqhd", torch.softmax(s, dim=-1), vv)
     return out.to(q.dtype)
@@ -42,10 +52,14 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_online(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, causal: bool = True, window: Optional[int] = None,
                            q_block: int = 512, kv_block: int = 512,
-                           q_offset: int = 0) -> torch.Tensor:
+                           q_offset: int = 0, return_lse: bool = False
+                           ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Online-softmax attention over (q_block × kv_block) tiles, f32 inside.
 
-    ``q_offset`` positions q token i at ``q_offset + i`` against kv.
+    ``q_offset`` positions q token i at ``q_offset + i`` against kv. With
+    ``return_lse`` also returns the LSE, (B, H, Sq) f32: the natural log of
+    Σ exp(scale·s) over the row's unmasked keys, as ``m + log(max(l, 1e-30))``
+    of the online softmax (the output's own normaliser).
     """
     B, Sq, H, D = q.shape
     _, Skv, Kh, _ = k.shape
@@ -55,23 +69,17 @@ def flash_attention_online(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qh = q.float().reshape(B, Sq, Kh, G, D)
     kf, vf = k.float(), v.float()
     out = torch.empty((B, Sq, Kh, G, D), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, Kh, G, Sq), dtype=torch.float32, device=q.device)
+    mask = _mask(Sq, Skv, causal, window, q_offset, q.device)
     for q0 in range(0, Sq, q_block):
         qc = qh[:, q0:q0 + q_block]                            # (B, qb, Kh, G, D)
-        q_pos = q_offset + torch.arange(q0, q0 + qc.shape[1], device=q.device)
         m = torch.full((B, Kh, G, qc.shape[1]), NEG_INF, device=q.device)
         l = torch.zeros_like(m)
         acc = torch.zeros((B, Kh, G, qc.shape[1], D), device=q.device)
         for k0 in range(0, Skv, kv_block):
             kc, vc = kf[:, k0:k0 + kv_block], vf[:, k0:k0 + kv_block]
-            kv_pos = torch.arange(k0, k0 + kc.shape[1], device=q.device)
             s = torch.einsum("bqkgd,btkd->bkgqt", qc, kc) * scale
-            mask = torch.ones((qc.shape[1], kc.shape[1]), dtype=torch.bool,
-                              device=q.device)
-            if causal:
-                mask &= kv_pos[None, :] <= q_pos[:, None]
-            if window is not None:
-                mask &= kv_pos[None, :] > q_pos[:, None] - window
-            s = torch.where(mask, s, NEG_INF)
+            s = torch.where(mask[q0:q0 + q_block, k0:k0 + kv_block], s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -80,4 +88,41 @@ def flash_attention_online(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             m = m_new
         res = acc / l.clamp(min=1e-30)[..., None]                # (B, Kh, G, qb, D)
         out[:, q0:q0 + q_block] = res.permute(0, 3, 1, 2, 4)
-    return out.reshape(B, Sq, H, D).to(q.dtype)
+        lse[..., q0:q0 + q_block] = m + torch.log(l.clamp(min=1e-30))
+    out = out.reshape(B, Sq, H, D).to(q.dtype)
+    if return_lse:
+        return out, lse.reshape(B, H, Sq)
+    return out
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                            causal: bool = True, window: Optional[int] = None,
+                            q_offset: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The explicit attention gradient (not autograd), f32 inside.
+
+    With s = scale·q·k and the forward's LSE (B, H, Sq): P = exp(s − LSE)
+    (0 where masked), dV = Pᵀ·dO, dP = dO·Vᵀ, Δ = rowsum(dO ⊙ O),
+    dS = P ⊙ (dP − Δ), dQ = scale·dS·K, dK = scale·dSᵀ·Q. dK and dV sum over
+    the G query heads of each KV head. Returns (dq, dk, dv) in the inputs'
+    dtype, shaped as q, k, v.
+    """
+    B, Sq, H, D = q.shape
+    _, Skv, Kh, _ = k.shape
+    G = H // Kh
+    scale = D ** -0.5
+    qf = q.float().reshape(B, Sq, Kh, G, D)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(B, Sq, Kh, G, D)
+    mask = _mask(Sq, Skv, causal, window, q_offset, q.device)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qf, kf) * scale
+    p = torch.exp(s - lse.reshape(B, Kh, G, Sq, 1))
+    p = torch.where(mask, p, 0.0)
+    dv = torch.einsum("bkgqt,bqkgd->btkd", p, dof)
+    dp = torch.einsum("bqkgd,btkd->bkgqt", dof, vf)
+    delta = (dof * o.float().reshape(B, Sq, Kh, G, D)).sum(-1)      # (B, Sq, Kh, G)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgqt,btkd->bqkgd", ds, kf) * scale
+    dk = torch.einsum("bkgqt,bqkgd->btkd", ds, qf) * scale
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))

@@ -191,6 +191,11 @@ def paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     if q.device.type == "cpu":
         return paged_attention_plain(q, kv_pages, block_start, block_valid,
                                      lengths, pages_per_block=pages_per_block)
+    if torch.is_grad_enabled() and (q.requires_grad or kv_pages.requires_grad):
+        raise NotImplementedError(
+            "paged_attention is decode-only and has no backward kernel: it takes no "
+            "input that requires a gradient on the card (training goes through "
+            "flash attention)")
     if live_blocks is None:
         live_blocks = block_start.shape[1]
     return _launch(q, kv_pages, block_start, block_valid, lengths,

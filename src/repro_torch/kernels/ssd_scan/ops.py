@@ -6,6 +6,10 @@ to ``launches`` per call (the source runs two kernels a call: C·Bᵀ once per
 reads it for every head); on CPU tensors it runs the kernel's plain version,
 ``ssd_chunked``. With ``return_state`` it also returns the state after the
 last chunk, (B, H, N, P) f32, which serving needs to start decode.
+
+The kernel has no backward yet (ROADMAP.md §1, item 12): on CUDA tensors a
+call that would need a gradient raises rather than return an output with
+no history; on CPU tensors the plain version differentiates.
 """
 
 from __future__ import annotations
@@ -35,6 +39,10 @@ def ssd_scan_op(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     if x.device.type == "cpu":
         y, h = ssd_chunked(x, Bm, Cm, dt, A, chunk=chunk)
     else:
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (x, Bm, Cm, dt, A)):
+            raise NotImplementedError(
+                "ssd_scan has no backward kernel yet (ROADMAP.md §1, item 12): the SSM "
+                "and hybrid archs train on the CPU until it lands")
         y, h = _launch(x, Bm, Cm, dt, A, chunk, return_state)
     return (y, h) if return_state else y
 

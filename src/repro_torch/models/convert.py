@@ -11,7 +11,7 @@ through float32 (exact for bf16) and then to the parameter's dtype.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -33,8 +33,14 @@ def _leaves(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 @torch.no_grad()
 def from_reference_params(params_np: Dict[str, Any], cfg: ModelConfig,
-                          device: str | torch.device = "cuda") -> Transformer:
+                          device: str | torch.device = "cuda",
+                          dtype: Optional[torch.dtype] = None) -> Transformer:
+    """A ``Transformer`` holding ``params_np``'s leaves; every parameter in
+    ``dtype`` if given (an f32 copy of bf16 weights, or a gradient tree read
+    back in f32), else in the port's own dtypes."""
     model = Transformer(cfg, device=device)
+    if dtype is not None:
+        model.to(dtype)
     ref = _leaves(params_np)
     used = set()
     for name, p in model.named_parameters():

@@ -1,4 +1,5 @@
-"""Decoder stack: forward, prefill into the decode cache, decode.
+"""Decoder stack: forward, training forward and loss, prefill into the
+decode cache, decode.
 
 Twin of ``repro/models/transformer.py`` for every arch of the registry. A
 block is a pre-norm mixer plus a pre-norm FFN, as the reference's
@@ -16,16 +17,24 @@ into the paged pool, the last ``window`` tokens' K/V into a ring, MLA's
 latent into its cache, the (conv, h) state into an ``SSMCache``. Inputs are
 token ids, or precomputed embeddings for the archs with a stubbed modality
 frontend (the reference's ``tokens_or_embeds``).
+
+Training (``forward_train``, ``loss_fn``) runs the same trunk with autograd
+on and keeps the MoE's aux loss, summed over layers as the reference's
+``forward`` does; ``remat="full"`` recomputes each block in the backward
+(``torch.utils.checkpoint``), the reference's ``jax.checkpoint`` of its
+scan body.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
@@ -116,16 +125,24 @@ class Block(nn.Module):
             s = ssm_decode(self.ssm, h, ssm, layer, cfg)
         return self._mix(a, s)
 
-    def ffn(self, x: torch.Tensor) -> torch.Tensor:
-        """x + FFN(norm(x)); the MoE's aux loss is dropped, as the reference's
-        prefill and decode drop it."""
+    def ffn(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(x + FFN(norm(x)), the MoE's aux loss or None). Prefill and decode
+        drop the aux loss, as the reference's do; training adds it."""
         if self.moe is not None:
-            y, _ = moe_apply(self.moe, rms_norm(x, self.norm_ffn, self.cfg.norm_eps),
-                             self.cfg)
-            return x + y
+            y, aux = moe_apply(self.moe, rms_norm(x, self.norm_ffn, self.cfg.norm_eps),
+                               self.cfg)
+            return x + y, aux
         if self.mlp is None:                     # d_ff = 0: the FFN half adds zero
-            return x
-        return x + self.mlp(rms_norm(x, self.norm_ffn, self.cfg.norm_eps))
+            return x, None
+        return x + self.mlp(rms_norm(x, self.norm_ffn, self.cfg.norm_eps)), None
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, layer: int,
+                kv: Optional[KVCache], kv_plan, ssm: Optional[SSMCache]
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The block over a whole sequence (the reference's ``block_forward``):
+        (x out, aux loss or None); decode state goes into the caches given."""
+        h = rms_norm(x, self.norm_mixer, self.cfg.norm_eps)
+        return self.ffn(x + self.mix_prompt(h, positions, layer, kv, kv_plan, ssm))
 
 
 class Transformer(nn.Module):
@@ -151,9 +168,11 @@ class Transformer(nn.Module):
 
     def _embed(self, tokens_or_embeds: torch.Tensor, token_ndim: int) -> torch.Tensor:
         """Token ids (``token_ndim`` dims) through the table, or precomputed
-        embeddings (one dim more) cast to the table's dtype."""
+        embeddings (one dim more) cast to the table's dtype. The lookup is
+        ``F.embedding``, whose gradient on the card sums each row's tokens in
+        a fixed order (no atomics), so training is reproducible."""
         if tokens_or_embeds.ndim == token_ndim:
-            return self.embed[tokens_or_embeds]
+            return F.embedding(tokens_or_embeds, self.embed)
         return tokens_or_embeds.to(self.embed.dtype)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -161,21 +180,36 @@ class Transformer(nn.Module):
         unembed = self.embed.T if self.cfg.tie_embeddings else self.unembed
         return x @ unembed
 
-    def _trunk(self, tokens_or_embeds: torch.Tensor, cache: Optional[Cache]
-               ) -> torch.Tensor:
+    def _trunk(self, tokens_or_embeds: torch.Tensor, cache: Optional[Cache],
+               remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
+        """(hidden states, aux loss summed over layers, f32 scalar)."""
         x = self._embed(tokens_or_embeds, 2)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=self.device).expand(B, S)
         kv, ssm = _parts(cache)
         kv_plan = kv.prompt_plan(B, S) if kv is not None else None
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for layer, blk in enumerate(self.blocks):
-            h = rms_norm(x, blk.norm_mixer, self.cfg.norm_eps)
-            x = blk.ffn(x + blk.mix_prompt(h, positions, layer, kv, kv_plan, ssm))
-        return x
+            if remat == "full":
+                x, a = checkpoint(blk, x, positions, layer, kv, kv_plan, ssm,
+                                  use_reentrant=False)
+            else:
+                x, a = blk(x, positions, layer, kv, kv_plan, ssm)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     def forward(self, tokens_or_embeds: torch.Tensor) -> torch.Tensor:
         """tokens (B, S) or embeddings (B, S, M) → logits (B, S, padded_vocab)."""
-        return self._logits(self._trunk(tokens_or_embeds, None))
+        return self._logits(self._trunk(tokens_or_embeds, None)[0])
+
+    def forward_train(self, tokens_or_embeds: torch.Tensor, *, remat: str = "none"
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The reference's training ``forward``: (logits, aux loss). ``remat``
+        "full" recomputes each block's activations in the backward; any other
+        value ("none", "dots") keeps them, as the reference does."""
+        x, aux = self._trunk(tokens_or_embeds, None, remat)
+        return self._logits(x), aux
 
     def init_cache(self, batch: int, max_len: int, *, page_tokens: int = 16,
                    pages_per_block: int = 4) -> Cache:
@@ -208,7 +242,7 @@ class Transformer(nn.Module):
     def prefill(self, tokens_or_embeds: torch.Tensor, cache: Cache) -> torch.Tensor:
         """Runs the prompt, writes its decode state into ``cache``;
         last-position logits."""
-        return self._logits(self._trunk(tokens_or_embeds, cache)[:, -1])
+        return self._logits(self._trunk(tokens_or_embeds, cache)[0][:, -1])
 
     def decode_step(self, cache: Cache, token_or_embed: torch.Tensor,
                     cur_index: np.ndarray) -> torch.Tensor:
@@ -219,8 +253,29 @@ class Transformer(nn.Module):
         x = self._embed(token_or_embed, 1)[:, None, :]              # (B, 1, M)
         for layer, blk in enumerate(self.blocks):
             h = rms_norm(x, blk.norm_mixer, self.cfg.norm_eps)
-            x = blk.ffn(x + blk.mix_step(h, layer, kv, plan, ssm))
+            x = blk.ffn(x + blk.mix_step(h, layer, kv, plan, ssm))[0]
         return self._logits(x)[:, 0]
+
+
+def loss_fn(model: Transformer, tokens: torch.Tensor, targets: torch.Tensor, *,
+            remat: str = "none") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The reference's ``loss_fn``: (nll + aux, {"nll", "aux"}).
+
+    Logits in f32, the pad-vocab columns masked with −1e30, the negative
+    log-likelihood of ``targets`` averaged over ``targets >= 0`` (the
+    denominator at least 1).
+    """
+    cfg = model.cfg
+    logits, aux = model.forward_train(tokens, remat=remat)
+    logits = logits.float()
+    if cfg.padded_vocab != cfg.vocab_size:          # mask pad-vocab columns
+        pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
+        logits = torch.where(pad, -1e30, logits)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets.clamp(min=0)[..., None])[..., 0]
+    mask = (targets >= 0).float()
+    nll = ((logz - gold) * mask).sum() / mask.sum().clamp(min=1.0)
+    return nll + aux, {"nll": nll, "aux": aux}
 
 
 def init_transformer(cfg: ModelConfig, *, seed: int = 0,

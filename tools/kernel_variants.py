@@ -169,7 +169,7 @@ def time_flash(cs, flash_libs, dev, gen, stream) -> None:
     fns = {}
     for name, (so, used) in flash_libs.items():
         fns[name] = ctypes.CDLL(str(so)).flash_attention_fwd
-        fns[name].argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fns[name].argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     for case, Bf, S, Hf, D in FLASH_CASES:
         q, k, v = (torch.randn(Bf, S, Hf, D, generator=gen, device=dev).bfloat16()
                    for _ in range(3))
@@ -177,7 +177,7 @@ def time_flash(cs, flash_libs, dev, gen, stream) -> None:
         for name, fn in fns.items():
             def call():
                 _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                Bf, S, S, Hf, Hf, D, 1, 0, 1, stream()), name)
+                                None, Bf, S, S, Hf, Hf, D, 1, 0, 1, stream()), name)
             print(json.dumps({"kernel": "flash_attention", "variant": name, "case": case,
                               "ms": cs.device_ms(call), "ptxas": flash_libs[name][1]}),
                   flush=True)
