@@ -83,7 +83,8 @@ Phases, each printing one JSON line:
    host gaps), its plain version's, the bound of the card, and a library call's;
    flash attention also at a causal prompt of 4096 tokens (D 64 and D 192), at
    deepseek's and hymba's prefill and at the training shape (with the LSE), the
-   flash backward at the training shape (library: SDPA's backward), paged
+   flash backward at the training shape, at qwen1.5-0.5b's heads (train_grads'
+   shape) and at head dim 192 (library: SDPA's backward), paged
    attention also at qwen2-moe's decode and at 8192 tokens of context (planned
    at R = 4 and R = 1) and at several split counts, the scan also at hymba's
    prefill.
@@ -338,8 +339,8 @@ def phase_compare(dev: torch.device) -> dict:
                     main_err[(name, dtype)] = err
             del q, k, v, out
         main_err[("flash", dtype)] = err          # the serving shape comes last
-    report["flash_bwd"], main_err[("flash_train", torch.bfloat16)], \
-        main_err[("flash_bwd", torch.bfloat16)] = compare_flash_bwd(dev, gen)
+    report["flash_bwd"], main_err[("flash_train", torch.bfloat16)] = \
+        compare_flash_bwd(dev, gen)
     for dtype in (torch.float32, torch.bfloat16):
         tol = PAGED_TOL[dtype]
         B, H, Kh, D, T, P, Pmax = 3, 8, 4, 32, 8, 40, 6
@@ -1037,7 +1038,8 @@ def paged_row(q, kv, lengths, plan, live_blocks, launches: int, err: float, case
 
 
 def phase_kernels(dev: torch.device, main_err: dict, launches: dict,
-                  kv_spill_launches: int, arch_launches: dict, train_launches: dict) -> None:
+                  kv_spill_launches: int, arch_launches: dict, train_launches: dict,
+                  grads_launches: dict) -> None:
     cfg = get_config(ARCH)
     gen = torch.Generator(device=dev).manual_seed(1)
     dt = torch.bfloat16
@@ -1066,8 +1068,19 @@ def phase_kernels(dev: torch.device, main_err: dict, launches: dict,
                             tc.head_dim, train_launches["flash_attention"],
                             main_err[("flash_train", dt)],
                             f"training: {TRAIN_ARCH} forward, with the LSE", lse=True)
-    flash_bwd = flash_bwd_row(dev, gen, train_launches["flash_attention_bwd"],
-                              main_err[("flash_bwd", dt)])
+    flash_bwd = flash_bwd_row(dev, gen, TRAIN_BATCH, TRAIN_SEQ, tc.num_heads,
+                              tc.num_kv_heads, tc.head_dim,
+                              train_launches["flash_attention_bwd"],
+                              f"training: {TRAIN_ARCH} backward (autodiff of "
+                              "flash_attention_jnp in the reference)")
+    flash_bwd_heads = flash_bwd_row(dev, gen, GRADS_BATCH[ARCH], TRAIN_SEQ, H, Kh, D,
+                                    grads_launches[ARCH]["flash_attention_bwd"],
+                                    f"train_grads: {ARCH} backward, H = Kh = {H}")
+    B, _, _, Hm, Khm, Dm, _, _ = flash_mla_shape()
+    # same kernel, off the main path: its launches are the main path's
+    flash_bwd_mla = flash_bwd_row(dev, gen, B, TRAIN_SEQ, Hm, Khm, Dm,
+                                  train_launches["flash_attention_bwd"],
+                                  f"{MLA_ARCH}'s head dim {Dm}, off the main path")
     pq, pkv, lengths, plan = paged_inputs(dev, gen, dt)
     live = -(-(PROMPT + GEN) // (PAGE_TOKENS * 4))   # as the last decode step plans it
     paged = paged_row(pq, pkv, lengths, plan, live, launches["paged_attention"],
@@ -1111,7 +1124,8 @@ def phase_kernels(dev: torch.device, main_err: dict, launches: dict,
                            main_err[("ssd_hybrid", torch.float32)],
                            f"serving: {HYBRID_ARCH} prefill")
     emit({"kernels": [flash, flash_long, flash_mla, flash_hybrid, flash_long_mla, flash_train,
-                      flash_bwd, paged, paged_moe, paged_long, scan, scan_hybrid]})
+                      flash_bwd, flash_bwd_heads, flash_bwd_mla, paged, paged_moe,
+                      paged_long, scan, scan_hybrid]})
 
 
 def check_engine_clean(stats: dict, what: str) -> dict:
@@ -1432,12 +1446,12 @@ def flash_bwd_shapes() -> list:
         (f"{MLA_ARCH} D 192", *flash_mla_shape())])
 
 
-def compare_flash_bwd(dev, gen) -> tuple[list, float, float]:
+def compare_flash_bwd(dev, gen) -> tuple[list, float]:
     """The forward's LSE and the backward kernel against their plain versions
     in f32 and bf16, the backward run twice and held to equal bits, and the
     forward with the LSE held equal to the forward without it. Returns
-    (report, max |err| of the training shape's bf16 forward, of its backward)."""
-    report, fwd_err, bwd_err = [], None, None
+    (report, max |err| of the training shape's bf16 forward)."""
+    report, fwd_err = [], None
     for case, B, Sq, Skv, H, Kh, D, causal, window in flash_bwd_shapes():
         for dtype in (torch.float32, torch.bfloat16):
             q, do = (torch.randn(B, Sq, H, D, generator=gen, device=dev).to(dtype)
@@ -1468,10 +1482,9 @@ def compare_flash_bwd(dev, gen) -> tuple[list, float, float]:
             report.append(row)
             if case == "train" and dtype == torch.bfloat16:
                 fwd_err = row["o_max_abs_err"]
-                bwd_err = max(row[f"{n}_max_abs_err"] for n in ("dq", "dk", "dv"))
             del q, k, v, do, o, lse, grads, again, plain, o_plain, lse_plain
     torch.cuda.empty_cache()
-    return report, fwd_err, bwd_err
+    return report, fwd_err
 
 
 def train_args(ckpt: Path, steps: int, *extra: str) -> list:
@@ -1600,14 +1613,16 @@ def grads_once(model, tokens, targets, plain: bool) -> tuple[dict, float, dict]:
     return grads, float(loss), launched
 
 
-def phase_train_grads() -> None:
+def phase_train_grads() -> dict:
     """Every parameter's gradient through the kernels against the gradient
     with flash swapped for its plain version on the card, one step at full
     width of rdmabox-paper-100m and qwen1.5-0.5b: printed in bf16, held on an
-    f32 copy (finite, nonzero, within TRAIN_GRAD_TOL in relative norm)."""
+    f32 copy (finite, nonzero, within TRAIN_GRAD_TOL in relative norm).
+    Returns each arch's kernel launches in its bf16 step."""
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
     from repro_torch.models import init_transformer
     torch.backends.cuda.matmul.allow_tf32 = False
+    launches = {}
     for arch, B in GRADS_BATCH.items():
         cfg = get_config(arch)
         batch = SyntheticTokens(DataConfig(cfg.vocab_size, TRAIN_SEQ, B)).batch_at(0)
@@ -1651,11 +1666,13 @@ def phase_train_grads() -> None:
                           "attention_rel_err": {n: e for n, e in errs.items()
                                                 if ".attn." in n and n.startswith("blocks.0.")},
                           "launches": launched_k}
+            launches.setdefault(arch, launched_k)
             del kernel, plain
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         emit(out)
         del model
         torch.cuda.empty_cache()
+    return launches
 
 
 def phase_train_resume() -> None:
@@ -1712,19 +1729,27 @@ def phase_train_resume() -> None:
     torch.cuda.empty_cache()
 
 
-def flash_bwd_row(dev, gen, launches: int, err: float) -> dict:
-    """The flash backward's row of the kernels line at the training shape,
-    bf16. Bound: q, k, v, o, dO, LSE, Δ read and dq, dk, dv written once, and
-    five products of 2·D flops a visible (query, key) pair. Library: the
-    backward of ``scaled_dot_product_attention`` (flash, ``is_causal``) on the
-    same tensors with the KV heads repeated (its dk, dv stay per query head):
-    a CUDA graph of its forward and backward less one of its forward alone."""
-    cfg = get_config(TRAIN_ARCH)
-    B, S, H, Kh, D = TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+def flash_bwd_row(dev, gen, B: int, S: int, H: int, Kh: int, D: int, launches: int,
+                  case: str) -> dict:
+    """A row of the kernels line for the flash backward: causal bf16, S
+    tokens, GQA H/Kh, head dim D. Its max |err| is against the plain backward
+    on the same inputs, held to FLASH_BWD_TOL. Bound: q, k, v, o, dO, LSE, Δ
+    read and dq, dk, dv written once, and five products of 2·D flops a
+    visible (query, key) pair. Library: the backward of
+    ``scaled_dot_product_attention`` (flash, ``is_causal``) on the same
+    tensors with the KV heads repeated (its dk, dv stay per query head): a
+    CUDA graph of its forward and backward less one of its forward alone."""
     dt = torch.bfloat16
     q, do = (torch.randn(B, S, H, D, generator=gen, device=dev).to(dt) for _ in range(2))
     k, v = (torch.randn(B, S, Kh, D, generator=gen, device=dev).to(dt) for _ in range(2))
     o, lse = fa._launch(q, k, v, True, None, with_lse=True)
+    what = f"flash bwd row {case}"
+    grads = fa._launch_bwd(q, k, v, o, lse, do, True, None)
+    torch.cuda.synchronize()
+    plain = flash_attention_bwd_ref(q, k, v, o, lse, do)
+    err = max(max_err(g, p, FLASH_BWD_TOL[dt], f"{what} {n}")
+              for n, g, p in zip(("dq", "dk", "dv"), grads, plain))
+    del grads, plain
     elem = torch.finfo(dt).bits // 8
     nbytes = (4 * q.numel() + 4 * k.numel()) * elem + 2 * lse.numel() * 4
     flops = 10 * D * B * H * attended_pairs(S, None)
@@ -1751,8 +1776,7 @@ def flash_bwd_row(dev, gen, launches: int, err: float) -> dict:
         "plain_ms": device_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do)),
         "bound_ms": bb, "bound_by": bby, "library_ms": sdpa_both_ms - sdpa_fwd_ms,
         "library_fwd_bwd_ms": sdpa_both_ms, "library_fwd_ms": sdpa_fwd_ms,
-        "case": f"training: {TRAIN_ARCH} backward (autodiff of flash_attention_jnp in "
-                "the reference)",
+        "case": case,
         "shape": {"q": list(q.shape), "kv": list(k.shape), "dtype": "bf16",
                   "bytes": nbytes, "flops": flops},
     }
@@ -1817,10 +1841,10 @@ def main() -> None:
     timed("hybrid_decode", phase_hybrid_decode)
     timed("mla_decode", phase_mla_decode)
     train_launches = timed("train", phase_train)
-    timed("train_grads", phase_train_grads)
+    grads_launches = timed("train_grads", phase_train_grads)
     timed("train_resume", phase_train_resume)
     timed("kernels", phase_kernels, dev, main_err, launches, kv_spill_launches,
-          arch_launches, train_launches)
+          arch_launches, train_launches, grads_launches)
     emit({"phase_seconds": PHASE_SECONDS, "total_s": time.perf_counter() - t_start})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -149,12 +149,81 @@ GPU_SHAPES = [   # B, Sq, Skv, H, Kh, D, causal, window
     *[(2, *s) for s in FLASH_SHAPES],
     (8, 512, 512, 12, 4, 64, True, None),       # rdmabox-paper-100m's training shape
     (2, 100, 100, 6, 2, 64, True, None),        # ragged tiles
+    (2, 64, 192, 4, 2, 64, True, None),         # Sq < Skv: dK/dV's first query block
     (1, 1280, 1280, 25, 5, 64, True, 1024),     # hymba's windowed shape
     (2, 70, 70, 16, 16, 128, False, 33),        # a window without causality
     (2, 64, 64, 16, 16, 192, True, None),       # MLA's head dim (deepseek)
     (1, 300, 300, 4, 4, 192, True, None),       # D 192, ragged tiles
 ]
 GPU_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # the forward's FLASH_TOL
+
+# The bf16 kernel's numerical budget, held on the CPU. The card's bf16
+# backward rounds P and dS to bf16 before the tensor-core products that use
+# them (dV = Pᵀ·dO; dQ = dS·K, dK = dSᵀ·q), sums in f32 and rounds each
+# output once; its check holds it to the plain backward within GPU_TOL.
+# These shapes are the card's: the training shape (at B 2), hymba's window,
+# head dim 192, qwen1.5-0.5b's 16/16 heads and a ragged Sq < Skv.
+ROUNDING_SHAPES = [   # B, Sq, Skv, H, Kh, D, causal, window
+    (2, 512, 512, 12, 4, 64, True, None),
+    (1, 1280, 1280, 25, 5, 64, True, 1024),
+    (1, 512, 512, 16, 16, 192, True, None),
+    (2, 512, 512, 16, 16, 64, True, None),
+    (2, 100, 228, 4, 2, 64, True, None),
+]
+
+
+def bf16_kernel_roundings(q, k, v, o, lse, do, *, causal, window, q_offset):
+    """The plain backward of one KV head group with the bf16 kernel's
+    roundings: P rounded to bf16 before Pᵀ·dO, dS rounded to bf16 before
+    dS·K and dSᵀ·q. q, o, do: (B, Sq, G, D); k, v: (B, Skv, 1, D); lse
+    (B, G, Sq). Returns (dq, dk, dv) in the inputs' dtype."""
+    D = q.shape[-1]
+    scale = D ** -0.5
+    qf, of, dof = q.float(), o.float(), do.float()
+    kf, vf = k[:, :, 0].float(), v[:, :, 0].float()
+    Sq, Skv = q.shape[1], k.shape[1]
+    qpos = torch.arange(Sq)[:, None] + q_offset
+    kpos = torch.arange(Skv)[None, :]
+    mask = torch.ones(Sq, Skv, dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = torch.einsum("bqgd,btd->bgqt", qf, kf) * scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    dv = torch.einsum("bgqt,bqgd->btd", p.bfloat16().float(), dof)
+    dp = torch.einsum("bqgd,btd->bgqt", dof, vf)
+    delta = (dof * of).sum(-1).permute(0, 2, 1)                      # (B, G, Sq)
+    ds = (p * (dp - delta[..., None])).bfloat16().float()
+    dq = torch.einsum("bgqt,btd->bqgd", ds, kf) * scale
+    dk = torch.einsum("bgqt,bqgd->btd", ds, qf) * scale
+    return dq.to(q.dtype), dk[:, :, None].to(k.dtype), dv[:, :, None].to(v.dtype)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Kh,D,causal,window", ROUNDING_SHAPES)
+def test_bf16_kernel_roundings_stay_within_the_card_tolerance(B, Sq, Skv, H, Kh, D, causal,
+                                                              window):
+    rng = np.random.default_rng(4)
+    q, do = (torch.from_numpy(rng.normal(size=(B, Sq, H, D)).astype(np.float32)).bfloat16()
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.normal(size=(B, Skv, Kh, D)).astype(np.float32)).bfloat16()
+            for _ in range(2))
+    o, lse = flash_attention_online(q, k, v, causal=causal, window=window,
+                                    q_offset=Skv - Sq, return_lse=True)
+    G, tol, rounded = H // Kh, GPU_TOL[torch.bfloat16], False
+    for kh in range(Kh):   # one KV head group at a time: a head group's work is separable
+        heads = slice(kh * G, (kh + 1) * G)
+        args = (q[:, :, heads], k[:, :, kh:kh + 1], v[:, :, kh:kh + 1], o[:, :, heads],
+                lse[:, heads], do[:, :, heads])
+        got = bf16_kernel_roundings(*args, causal=causal, window=window, q_offset=Skv - Sq)
+        want = flash_attention_bwd_ref(*args, causal=causal, window=window,
+                                       q_offset=Skv - Sq)
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            assert a.shape == w.shape and a.dtype == w.dtype == torch.bfloat16
+            torch.testing.assert_close(a.float(), w.float(), atol=tol, rtol=tol,
+                                       msg=lambda m: f"d{name[1]}, KV head {kh}: {m}")
+            rounded |= not torch.equal(a, w)
+    assert rounded            # the roundings do change some bits
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -39,6 +39,7 @@ SHAPES = [   # B, Sq, Skv, H, Kh, D, causal, window
     (2, 64, 64, 2, 1, 128, True, None),                  # tests/test_kernels.py
     (8, 512, 512, 12, 4, 64, True, None),                # rdmabox-paper-100m training
     (2, 100, 100, 6, 2, 64, True, None),                 # ragged tiles
+    (2, 64, 192, 4, 2, 64, True, None),                  # Sq < Skv at D 64
     (1, 1280, 1280, 25, 5, 64, True, 1024),              # hymba's window
     (2, 70, 70, 16, 16, 128, False, 33),                 # a window without causality
     (4, 64, 64, 16, 16, 192, True, None),                # deepseek's prefill, D 192

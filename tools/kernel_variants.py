@@ -10,7 +10,8 @@ means anything. Needs an NVIDIA GPU and nvcc; prints one JSON line per
 variant, then the card's name and power limit::
 
     python tools/kernel_variants.py            # build and time every variant
-    python tools/kernel_variants.py paged      # only one kernel's (ssd_scan, flash, paged)
+    python tools/kernel_variants.py paged      # only one kernel's (ssd_scan, flash,
+                                               # flash_bwd, paged)
     python tools/kernel_variants.py --check    # only apply the edits (no GPU)
 """
 
@@ -65,6 +66,30 @@ FLASH_CASES = [("long prompt D 64", 1, 4096, 16, 64),
                ("deepseek prefill D 192", 4, 64, 16, 192),
                ("long prompt D 192", 1, 4096, 16, 192)]
 
+# (old, new) edits of csrc/flash_attention_bwd.cu; timed in bf16 at the
+# training shape (rdmabox-paper-100m: B 8, S 512, H 12, Kh 4, D 64, causal).
+# A kernel cut to an early return still launches.
+BWD_DQ = "  using C = Tc<D>;\n  constexpr int kThreadsQ = 32 * kTcWarps;\n"
+BWD_DKDV = ("  using C = Tc<D>;\n  constexpr int kS = tc_stride<D>();\n"
+            "  constexpr int kDK = D / 16;                    // k steps of S^T and dP^T\n")
+FLASH_BWD = {
+    "shipped": [],
+    "no_dq": [(BWD_DQ, "  if (Sq > 0) return;\n" + BWD_DQ)],
+    "no_dkdv": [(BWD_DKDV, "  if (Sq > 0) return;\n" + BWD_DKDV)],
+    "delta_only": [(BWD_DQ, "  if (Sq > 0) return;\n" + BWD_DQ),
+                   (BWD_DKDV, "  if (Sq > 0) return;\n" + BWD_DKDV)],
+    "no_exp": [("fast_exp2(fmaf(", "(fmaf(")],
+    "no_dvdk_mma": [("          mma_bf16(acc_v[2 * dp], pa4, r[0], r[1]);\n"
+                     "          mma_bf16(acc_v[2 * dp + 1], pa4, r[2], r[3]);\n", ""),
+                    ("          mma_bf16(acc_k[2 * dp], sa4, r[0], r[1]);\n"
+                     "          mma_bf16(acc_k[2 * dp + 1], sa4, r[2], r[3]);\n", "")],
+    "no_dq_mma": [("          mma_bf16(acc[2 * dn], sa4, r[0], r[1]);\n"
+                   "          mma_bf16(acc[2 * dn + 1], sa4, r[2], r[3]);\n", "")],
+    "dq_chunk_64": [("static constexpr int kChunkK = D >= 64 ? 32 : 64;",
+                     "static constexpr int kChunkK = 64;")],
+    "walk_1": [("static constexpr int kWalk = 2 / kSplit;", "static constexpr int kWalk = 1;")],
+}
+
 # (old, new) edits of csrc/paged_attention.cu; timed at chip_smoke.py's long
 # decode context (8192 tokens a sequence) planned at R = 4 and R = 1, each at
 # the wrapper's launch shape; the shipped source also at other launch shapes
@@ -109,15 +134,17 @@ def build(paths: dict) -> dict:
         if proc.returncode:
             raise SystemExit(f"variant {name} failed to build:\n{log[-3000:]}")
         libs[name] = (paths[name].with_suffix(".so"),
-                      [ln.split(":", 1)[1].strip() for ln in log.splitlines() if "Used" in ln])
+                      [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+                       if "Used" in ln or "spill stores" in ln and not ln.strip().startswith("0 ")])
     return libs
 
 
 def main() -> None:
-    kinds = {"ssd_scan": SSD, "flash": FLASH, "paged": PAGED}
+    kinds = {"ssd_scan": SSD, "flash": FLASH, "flash_bwd": FLASH_BWD, "paged": PAGED}
     only = [a for a in sys.argv[1:] if a in kinds] or list(kinds)
-    sources = {k: write_variants({"flash": "flash_attention", "paged": "paged_attention"}
-                                 .get(k, k), kinds[k]) for k in only}
+    files = {"flash": "flash_attention", "flash_bwd": "flash_attention_bwd",
+             "paged": "paged_attention"}
+    sources = {k: write_variants(files.get(k, k), kinds[k]) for k in only}
     if "--check" in sys.argv:
         print(json.dumps({"variants": sorted(f"{k}/{v}" for k in sources for v in sources[k])}))
         return
@@ -137,6 +164,8 @@ def main() -> None:
         time_ssd(cs, libs["ssd_scan"], dev, gen, stream)
     if "flash" in libs:
         time_flash(cs, libs["flash"], dev, gen, stream)
+    if "flash_bwd" in libs:
+        time_flash_bwd(cs, libs["flash_bwd"], dev, gen, stream)
     if "paged" in libs:
         time_paged(cs, libs["paged"], dev, gen, stream)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -186,6 +215,30 @@ def time_flash(cs, flash_libs, dev, gen, stream) -> None:
                           "ms": cs.device_ms(lambda: torch.nn.functional
                                              .scaled_dot_product_attention(
                                                  qt, kt, vt, is_causal=True))}))
+
+
+def time_flash_bwd(cs, bwd_libs, dev, gen, stream) -> None:
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    B, S, H, Kh, D = 8, 512, 12, 4, 64
+    q, do = (torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, S, Kh, D, generator=gen, device=dev).bfloat16() for _ in range(2))
+    o, lse = fa._launch(q, k, v, True, None, with_lse=True)
+    delta = torch.empty(B, H, S, dtype=torch.float32, device=dev)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for name, (so, used) in bwd_libs.items():
+        fn = ctypes.CDLL(str(so)).flash_attention_bwd
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+        def call():
+            _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                            dk.data_ptr(), dv.data_ptr(), B, S, S, H, Kh, D, 1, 0, 1,
+                            stream()), name)
+        print(json.dumps({"kernel": "flash_attention_bwd", "variant": name,
+                          "case": "training shape", "ms": cs.device_ms(call),
+                          "ptxas": used}), flush=True)
 
 
 def time_paged(cs, paged_libs, dev, gen, stream) -> None:
