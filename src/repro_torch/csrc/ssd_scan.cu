@@ -14,6 +14,21 @@
 // the last chunk is written to h_final (B, H, N, P). The TPU kernel keeps
 // it in VMEM scratch and drops it; serving needs it to start decode.
 //
+// Training runs a second forward, ssd_scan_fwd_states (at the end of this
+// file; serving's code above it is what it was). It also writes the state
+// entering each chunk, states (B, L / chunk, H, N, P), which the backward
+// (ssd_scan_bwd.cu) reads. And it is exact f32 where serving's is 3xTF32
+// and sums cs in f32: with cs summed in f64 (a dt rounded to f32 first) and
+// every product an f32 FMA on the CUDA cores, as the backward computes.
+// Serving's forward under training puts full-width mamba2-780m's f32
+// gradients 1.3e-3 off the plain path's, this one 3.3e-5 (on an H100,
+// tools/ssd_grads_split.py; chip_smoke.py holds them to 1e-4): 48 layers
+// amplify serving's ~1e-5 in y. The plain version is
+// ref.py::ssd_chunked(..., cs64=True). Three
+// launches: C . B^T (ssd_f32.cuh), the sweep of h over the chunks a CTA per
+// (b, h), writing each chunk's entering state, then y a CTA per (64-token row
+// block, chunk, h, b) from those states.
+//
 // Bound on this card: operations. At the serving shape (B 4, L 512, H 48,
 // P 64, N 128, K 256) the function needs ~4.9 GFLOP, counting the causal
 // half of each K x K product and the head-shared C . B^T once per
@@ -71,6 +86,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "ssd_f32.cuh"
 
 namespace {
 
@@ -449,6 +466,193 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ Bm,
 
 }  // namespace
 
+// The training forward's kernels (see the top of the file).
+namespace ssd_f32 {
+
+// h over the chunks, a CTA per (h, b): thread (tn, tp) owns
+// h[tn + 32 r][tp + 8 q], r < 4, q < 8. Per chunk: h to states, then
+// h <- exp(cs_last) h + sum_j w_j B_j (x) x_j over tiles of 32 tokens,
+// w_j = dt_j exp(cs_last - cs_j); h_final (if not null) after the last.
+static __global__ void __launch_bounds__(kThreads)
+fwd_state_kernel(const float* __restrict__ x, const float* __restrict__ Bm,
+                 const float* __restrict__ dt, const float* __restrict__ A,
+                 float* __restrict__ states, float* __restrict__ h_final, int L, int H, int P,
+                 int N, int K) {
+  __shared__ __align__(16) float b_tile[32 * kS128], x_tile[32 * kS64];
+  __shared__ double cs_s[kMaxChunk], wsum[kWarps];
+  __shared__ float dt_s[kMaxChunk], w_s[kMaxChunk];
+  const int h = blockIdx.x, b = blockIdx.y, nC = L / K;
+  const int tid = threadIdx.x, tn = tid >> 3, tp = tid & 7;
+  const float a = A[h];
+  const long tokH = (long)H * P;
+  float hs[4][8] = {};
+  for (int c = 0; c < nC; ++c) {
+    const int c0 = c * K;
+    float* st = states + (((long)b * nC + c) * H + h) * N * P;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int n = tn + 32 * r, p = tp + 8 * q;
+        if (n < N && p < P) st[(long)n * P + p] = hs[r][q];
+      }
+    chunk_cs(dt + ((long)b * L + c0) * H + h, H, K, a, cs_s, dt_s, wsum);
+    const double cs_last = cs_s[K - 1];
+    if (tid < K) w_s[tid] = dt_s[tid] * expf(static_cast<float>(cs_last - cs_s[tid]));
+    const float e_last = expf(static_cast<float>(cs_last));
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) hs[r][q] *= e_last;
+    const float* Bc = Bm + ((long)b * L + c0) * N;
+    const float* xc = x + ((long)b * L + c0) * tokH + (long)h * P;
+    __syncthreads();                             // w_s ready
+    for (int j0 = 0; j0 < K; j0 += 32) {
+      for (int e = tid; e < 32 * kMaxN; e += kThreads) {
+        const int r = e / kMaxN, n = e % kMaxN, j = j0 + r;
+        b_tile[r * kS128 + n] = j < K && n < N ? w_s[j] * __ldg(Bc + (long)j * N + n) : 0.f;
+      }
+      for (int e = tid; e < 32 * kMaxP; e += kThreads) {
+        const int r = e / kMaxP, p = e % kMaxP, j = j0 + r;
+        x_tile[r * kS64 + p] = j < K && p < P ? __ldg(xc + (long)j * tokH + p) : 0.f;
+      }
+      __syncthreads();
+      const int rows = min(32, K - j0);
+      for (int r = 0; r < rows; ++r) {
+        float bv[4], xv[8];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) bv[k] = b_tile[r * kS128 + tn + 32 * k];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) xv[k] = x_tile[r * kS64 + tp + 8 * k];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int m = 0; m < 8; ++m) hs[k][m] += bv[k] * xv[m];
+      }
+      __syncthreads();
+    }
+  }
+  if (h_final != nullptr) {
+    float* dst = h_final + ((long)b * H + h) * N * P;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int n = tn + 32 * r, p = tp + 8 * q;
+        if (n < N && p < P) dst[(long)n * P + p] = hs[r][q];
+      }
+  }
+}
+
+// shared memory of fwd_y_kernel, in floats: cs, wsum (doubles), dt, then the
+// larger of its two views
+constexpr int kYHead = 2 * kMaxChunk + 2 * kWarps + kMaxChunk;
+constexpr int kYSmem = kYHead + 2 * kMaxN * kS64;
+static_assert(kYHead % 4 == 0, "16-byte aligned tiles");
+static_assert(2 * kT * kS64 <= 2 * kMaxN * kS64, "the loop view fits the init view");
+
+// y of row block ib (heaviest first), chunk, head, batch: exp(cs_i) C_i . h-
+// plus sum_{j<=i} W_ij x_j, W_ij = G_ij exp(cs_i - cs_j) dt_j (0 above the
+// diagonal, by select). Thread (iq, pq) owns y[4 iq + r][4 pq + q].
+static __global__ void __launch_bounds__(kThreads)
+fwd_y_kernel(const float* __restrict__ x, const float* __restrict__ Cm,
+             const float* __restrict__ dt, const float* __restrict__ A,
+             const float* __restrict__ G, const float* __restrict__ states,
+             float* __restrict__ y, int L, int H, int P, int N, int K) {
+  extern __shared__ float4 smem4[];
+  double* cs_s = reinterpret_cast<double*>(smem4);
+  double* wsum = cs_s + kMaxChunk;
+  float* dt_s = reinterpret_cast<float*>(wsum + kWarps);
+  float* U = reinterpret_cast<float*>(smem4) + kYHead;
+  float* ct = U;                                 // init: C[i][n] at [n][i]
+  float* hn = ct + kMaxN * kS64;                 //       h-[n][p] at [n][p]
+  float* xn = U;                                 // loop: x[j][p] at [j][p]
+  float* wt = xn + kT * kS64;                    //       W[i][j] at [j][i]
+
+  const int nT = (K + kT - 1) / kT, ib = nT - 1 - blockIdx.x, i0 = ib * kT;
+  const int c = blockIdx.y / H, h = blockIdx.y % H, b = blockIdx.z, nC = L / K, c0 = c * K;
+  const int tid = threadIdx.x, hi = tid >> 4, lo = tid & 15;
+  const long tokH = (long)H * P;
+  const float* xc = x + ((long)b * L + c0) * tokH + (long)h * P;
+  const float* Cc = Cm + ((long)b * L + c0) * N;
+  const float* hp = states + (((long)b * nC + c) * H + h) * N * P;
+  const float* Gc = G + ((long)b * nC + c) * K * K;
+
+  for (int e = tid; e < kT * kMaxN; e += kThreads) {
+    const int r = e / kMaxN, n = e % kMaxN, i = i0 + r;
+    ct[n * kS64 + r] = i < K && n < N ? __ldg(Cc + (long)i * N + n) : 0.f;
+  }
+  for (int e = tid; e < kMaxN * kMaxP; e += kThreads) {
+    const int n = e / kMaxP, p = e % kMaxP;
+    hn[n * kS64 + p] = n < N && p < P ? __ldg(hp + (long)n * P + p) : 0.f;
+  }
+  chunk_cs(dt + ((long)b * L + c0) * H + h, H, K, A[h], cs_s, dt_s, wsum);
+
+  float acc[4][4] = {};
+  for (int n = 0; n < N; ++n) {
+    const float4 cv = ld4(ct + n * kS64 + 4 * hi), hv = ld4(hn + n * kS64 + 4 * lo);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[r][q] += el(cv, r) * el(hv, q);
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = i0 + 4 * hi + r;
+    const float ecs = i < K ? expf(static_cast<float>(cs_s[i])) : 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[r][q] *= ecs;
+  }
+  __syncthreads();                               // the init view is read
+
+  for (int jb = 0; jb <= ib; ++jb) {
+    const int j0 = jb * kT;
+    for (int e = tid; e < kT * kMaxP; e += kThreads) {
+      const int r = e / kMaxP, p = e % kMaxP, j = j0 + r;
+      xn[r * kS64 + p] = j < K && p < P ? __ldg(xc + (long)j * tokH + p) : 0.f;
+    }
+    float w[4][4];                               // rows 4 hi.., columns 4 lo..
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = i0 + 4 * hi + r;
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int j = j0 + 4 * lo + s;
+        w[r][s] = 0.f;
+        if (i < K && j <= i) {
+          const float lij = expf(fminf(static_cast<float>(cs_s[i] - cs_s[j]), 0.f));
+          w[r][s] = __ldg(Gc + (long)i * K + j) * lij * dt_s[j];
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      st4(wt + (4 * lo + s) * kS64 + 4 * hi, w[0][s], w[1][s], w[2][s], w[3][s]);
+    __syncthreads();
+    const int cols = min(kT, K - j0);
+    for (int jj = 0; jj < cols; ++jj) {
+      const float4 wv = ld4(wt + jj * kS64 + 4 * hi), xv = ld4(xn + jj * kS64 + 4 * lo);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[r][q] += el(wv, r) * el(xv, q);
+    }
+    __syncthreads();
+  }
+
+  float* yb = y + ((long)b * L + c0) * tokH + (long)h * P;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = i0 + 4 * hi + r;
+    if (i >= K) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (4 * lo + q < P) yb[(long)i * tokH + 4 * lo + q] = acc[r][q];
+  }
+}
+
+}  // namespace ssd_f32
+
 // h_final may be null (then only y is written). cb_scratch holds
 // B * (L / chunk) * round16(chunk)^2 floats of C . B^T tiles. Returns cudaGetLastError() after the
 // launches (0 = launched).
@@ -477,5 +681,41 @@ extern "C" int ssd_scan_fwd(const void* x, const void* Bm, const void* Cm,
       static_cast<const float*>(Cm), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const float4*>(cb_scratch),
       static_cast<float*>(y), static_cast<float*>(h_final), L, H, P, N, chunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The training forward (see the top of the file): y, h_final (may be null)
+// and the state entering each chunk, states (B, L / chunk, H, N, P); all f32
+// CUDA-core arithmetic, cs in f64. cb_scratch holds C . B^T, K x K a (b,
+// chunk): the same buffer ssd_scan_fwd takes is large enough. Returns
+// cudaGetLastError() after the launches (0 = launched).
+extern "C" int ssd_scan_fwd_states(const void* x, const void* Bm, const void* Cm,
+                                   const void* dt, const void* A, void* y, void* h_final,
+                                   void* cb_scratch, void* states, int B, int L, int H,
+                                   int P, int N, int chunk, void* stream) {
+  namespace f = ssd_f32;
+  if (B <= 0 || B > 65535 || H <= 0 || L <= 0 || chunk <= 0 || chunk > f::kMaxChunk ||
+      L % chunk != 0 || (long)(L / chunk) * H > 65535 || H > 65535 || N <= 0 ||
+      N > f::kMaxN || P <= 0 || P > f::kMaxP || cb_scratch == nullptr || states == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      f::fwd_y_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      f::kYSmem * static_cast<int>(sizeof(float)));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nC = L / chunk, nT = (chunk + f::kT - 1) / f::kT;
+  const float *fx = static_cast<const float*>(x), *fB = static_cast<const float*>(Bm),
+              *fC = static_cast<const float*>(Cm), *fdt = static_cast<const float*>(dt),
+              *fA = static_cast<const float*>(A);
+  float* G = static_cast<float*>(cb_scratch);
+  float* fst = static_cast<float*>(states);
+  cudaError_t e;
+  f::g_kernel<<<dim3(nT * nT, nC, B), f::kThreads, 0, s>>>(fB, fC, G, L, N, chunk);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  f::fwd_state_kernel<<<dim3(H, B), f::kThreads, 0, s>>>(
+      fx, fB, fdt, fA, fst, static_cast<float*>(h_final), L, H, P, N, chunk);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  f::fwd_y_kernel<<<dim3(nT, nC * H, B), f::kThreads, f::kYSmem * sizeof(float), s>>>(
+      fx, fC, fdt, fA, G, fst, static_cast<float*>(y), L, H, P, N, chunk);
   return static_cast<int>(cudaGetLastError());
 }

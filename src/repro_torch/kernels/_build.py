@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exports a plain C interface and is compiled with
 ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/repro_torch_kernels/`` at the repo root, then loaded with
-``ctypes``. A library is named after the hash of its source and flags, so
-an edited source rebuilds and an unchanged one loads from disk. Nothing
+``ctypes``. A library is named after the hash of its source, the headers
+beside it (``csrc/*.cuh``) and the flags, so an edited source or header
+rebuilds and an unchanged one loads from disk. Nothing
 is compiled at import time: the first kernel call builds what it needs,
 and ``build_all()`` builds every source at once, one ``nvcc`` each, all
 started together.
@@ -28,7 +29,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("flash_attention", "flash_attention_bwd", "paged_attention", "ssd_scan")
+SOURCES = ("flash_attention", "flash_attention_bwd", "paged_attention", "ssd_scan",
+           "ssd_scan_bwd")
 
 
 def _nvcc() -> str:
@@ -41,7 +43,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 

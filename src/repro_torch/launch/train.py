@@ -1,8 +1,8 @@
 """End-to-end training launcher.
 
 The port of ``repro/launch/train.py``: one loop of the train step
-(forward, ``loss_fn``, backward through the flash-attention kernels,
-AdamW), the deterministic data pipeline, async crash-safe checkpointing
+(forward, ``loss_fn``, backward through the flash-attention and SSD-scan
+kernels, AdamW), the deterministic data pipeline, async crash-safe checkpointing
 with resume-from-latest, and (``--offload``) the optimizer's first moment
 streamed through the RDMAbox engine at every checkpoint — the paper's
 remote paging system carrying real training state.
@@ -12,10 +12,9 @@ remote paging system carrying real training state.
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu
 
 It runs on the card unless ``--device cpu`` is given (the kernels' plain
-versions, as in the tests). One device only: ``--data``/``--model`` other
-than 1 wait for the mesh (ROADMAP.md §1, item 11). On the card the SSM and
-hybrid archs raise (the scan has no backward kernel yet, item 12); on the
-CPU every arch trains. The default ``--ckpt-dir`` differs from the reference's, so the
+versions, as in the tests). Every arch trains on either device. One device
+only: ``--data``/``--model`` other than 1 wait for the mesh (ROADMAP.md §1,
+item 11). The default ``--ckpt-dir`` differs from the reference's, so the
 port never resumes a JAX checkpoint.
 
 ``--offload`` sizes its donors to hold the whole first moment: the

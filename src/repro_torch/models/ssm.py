@@ -3,7 +3,10 @@
 Twin of ``repro/models/ssm.py``. Where the reference runs its ``lax.scan``
 over ``chunk_body``, the port calls ``ssd_scan_op``, which computes the same
 chunked SSD (less the ``D`` skip, added here) in one CUDA kernel on CUDA
-tensors and in plain torch on CPU tensors. Each step keeps the reference's
+tensors and in plain torch on CPU tensors. Where the reference trains
+through autodiff of that ``lax.scan``, ``ssd_scan_op``'s gradient is the
+scan's backward kernel (``csrc/ssd_scan_bwd.cu``) on CUDA tensors and its
+plain version on CPU tensors. Each step keeps the reference's
 dtypes: the projections and the prefill conv in bf16, ``dt``, ``A`` and the
 scan in f32, the decode conv and state in f32, ``y`` cast to bf16 before
 ``w_out``. Decode updates the cache in place.

@@ -269,8 +269,11 @@ def test_wrappers_refuse_a_gradient_they_cannot_give_on_gpu(cuda):
     x = torch.randn(1, 32, 2, 16, device=cuda, requires_grad=True)
     Bm, Cm = torch.randn(1, 32, 8, device=cuda), torch.randn(1, 32, 8, device=cuda)
     dt, A = torch.rand(1, 32, 2, device=cuda), -torch.rand(2, device=cuda)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ssd.ssd_scan_op(x, Bm, Cm, dt, A, chunk=16)
+    # the scan refuses no longer: its gradient launches the backward kernel
+    before = ssd.bwd_launches
+    ssd.ssd_scan_op(x, Bm, Cm, dt, A, chunk=16).sum().backward()
+    torch.cuda.synchronize()
+    assert ssd.bwd_launches == before + 1 and torch.isfinite(x.grad).all()
     with torch.no_grad():
         assert ssd.ssd_scan_op(x, Bm, Cm, dt, A, chunk=16).shape == x.shape
     q = torch.randn(1, 2, 32, device=cuda, requires_grad=True)
