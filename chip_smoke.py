@@ -87,9 +87,12 @@ Phases, each printing one JSON line:
    kernels against the gradient with flash's and the scan's plain versions
    swapped in on the card: held on an f32 copy (finite, nonzero, relative norm
    error ≤ 1e-4), printed in bf16, each arch's launches held;
-19. train_resume: rdmabox-paper-100m's width at 2 layers, 6 straight steps
+19. moe_repeat: qwen2-moe-a2.7b at full width, depth cut to 2 of 24 layers,
+   B 4, S 512: two forwards and backwards of the loss, the loss and every
+   gradient equal in every bit (the MoE combine sums in a fixed order);
+20. train_resume: rdmabox-paper-100m's width at 2 layers, 6 straight steps
    against 3 + a checkpoint restore + 3, every parameter and moment equal;
-20. kernels: each kernel's time at the serving shapes (CUDA-graph replay, so no
+21. kernels: each kernel's time at the serving shapes (CUDA-graph replay, so no
    host gaps), its plain version's, the bound of the card, and a library call's;
    flash attention also at a causal prompt of 4096 tokens (D 64 and D 192), at
    deepseek's and hymba's prefill and at the training shape (with the LSE), the
@@ -97,9 +100,11 @@ Phases, each printing one JSON line:
    shape) and at head dim 192 (library: SDPA's backward), paged
    attention also at qwen2-moe's decode and at 8192 tokens of context (planned
    at R = 4 and R = 1) and at several split counts, the scan also at hymba's
-   prefill, the scan's training forward (f32 on the CUDA cores) and backward
+   prefill, the scan's training forward (y in f32 on the CUDA cores, the
+   state sweep on the FP64 tensor cores) and backward (FP64 tensor cores)
    at mamba2-780m's training shape (B 8, S 512), the backward also at
-   hymba-1.5b's N 16 (B 4).
+   hymba-1.5b's N 16 (B 4); the scan's training rows give the bound at 3×TF32
+   and at the FP64 tensor cores they run.
 
 Each phase's seconds are printed as it ends and gathered in a ``phase_seconds``
 line. The last line is ``{"ok": true, "device": {...}}``. Any failure raises
@@ -147,6 +152,11 @@ from repro_torch.model import ModelWorkload, run_calibration  # noqa: E402
 # tensor cores at 495 / 3 = 165 TFLOP/s, so that is the least time for f32 work.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
+# The scan's training kernels run their products on the FP64 tensor cores
+# (exact products of f32 operands, f64 sums) and on the f32 CUDA cores: 67
+# TFLOP/s each, the data sheet's rate. Their rows give the bound at this rate
+# beside the 3×TF32 bound above.
+FP64_TC_FLOPS = 67e12
 
 ARCH, BATCH, PROMPT, GEN, PAGE_TOKENS = "qwen1.5-0.5b", 4, 64, 32, 16
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -220,6 +230,10 @@ GRADS_BATCH = {"rdmabox-paper-100m": 8, ARCH: 4, SSM_ARCH: 4, HYBRID_ARCH: 4}
 # state 128, chunk 256), B 8 and S 512: two chunks, so the state's gradient
 # crosses a chunk. One checkpoint, after the last step.
 SSM_TRAIN_STEPS = 30
+# moe_repeat: qwen2-moe-a2.7b at full width (d_model 2048, 60 experts of 1408,
+# top 4, 4 shared), its depth cut from 24 layers to 2 so that a bf16 forward
+# and backward fit beside the run's other state; B 4, S 512.
+MOE_ARCH, MOE_LAYERS, MOE_BATCH = "qwen2-moe-a2.7b", 2, 4
 # The flash backward against flash_attention_bwd_ref on the card. f32: both
 # sides sum the same f32 products in other orders (on an H100 they differ by
 # at most ~1e-6 on gradients up to 9 in magnitude). bf16: both
@@ -1079,8 +1093,9 @@ def scan_row(dev, gen, shape: tuple, launches: int, err, case: str,
              training: bool = False) -> dict:
     """The SSD scan's row of the kernels line at (B, L, H, P, N, chunk), f32,
     model-like dt and A, the final state written; with ``training`` the
-    training forward (f32 on the CUDA cores, cs in f64, the chunk-entry
-    states written), its max |err| measured here against
+    training forward (y in f32 on the CUDA cores, the states on the FP64
+    tensor cores, cs in f64, the chunk-entry states written), its max |err|
+    measured here against
     ``ssd_chunked(..., cs64=True)`` and held to SSD_TOL."""
     B, L, H, P, N, K = shape
     x, Bm, Cm, dt, A = ssd_inputs(dev, gen, B, L, H, P, N, model_like=True)
@@ -1112,6 +1127,12 @@ def scan_row(dev, gen, shape: tuple, launches: int, err, case: str,
         "shape": {"x": list(x.shape), "N": N, "chunk": K, "dtype": "f32", "h_final": True,
                   "states": training},
     }
+    if training:    # the bound at the rate of the arithmetic it runs, beside 3×TF32's
+        nbytes, flops = ssd_work(B, L, H, P, N, K, states=True)
+        row["bound_ms_fp64_tc"] = max(nbytes / HBM_BYTES_PER_S, flops / FP64_TC_FLOPS) * 1e3
+        print(f"ssd training forward {case}: {row['ms']:.6f} ms; bound {sb:.6f} ms at "
+              f"3×TF32, {row['bound_ms_fp64_tc']:.6f} ms at the FP64 tensor cores and f32 "
+              f"CUDA cores it runs")
     del x, Bm, Cm, dt, A
     torch.cuda.empty_cache()
     return row
@@ -1139,6 +1160,7 @@ def scan_bwd_row(dev, gen, shape: tuple, launches: int, case: str) -> dict:
     del grads, again, plain
     nbytes, flops = ssd_bwd_work(B, L, H, P, N, K)
     bb, bby = bound_ms(nbytes, flops, torch.float32)
+    _, flops_per_head = ssd_bwd_work(B, L, H, P, N, K, dg_per_head=True)
     row = {
         "name": "ssd_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
@@ -1151,10 +1173,17 @@ def scan_bwd_row(dev, gen, shape: tuple, launches: int, case: str) -> dict:
         "bound_ms": bb, "bound_by": bby, "library_ms": None,
         "fwd_states_ms": device_ms(lambda: ssd._launch(x, Bm, Cm, dt, A, K, True,
                                                        with_states=True)),
+        "bound_ms_fp64_tc": max(nbytes / HBM_BYTES_PER_S, flops / FP64_TC_FLOPS) * 1e3,
         "case": case,
         "shape": {"x": list(x.shape), "N": N, "chunk": K, "dtype": "f32",
-                  "dh_final": None, "bytes": nbytes, "flops": flops},
+                  "dh_final": None, "bytes": nbytes, "flops": flops,
+                  "flops_dg_per_head": flops_per_head},
     }
+    print(f"ssd backward {case}: {row['ms']:.6f} ms; bound {bb:.6f} ms at 3×TF32, "
+          f"{row['bound_ms_fp64_tc']:.6f} ms at the FP64 tensor cores it runs "
+          f"({flops / 1e9:.2f} GFLOP; {flops_per_head / 1e9:.2f} with dG met per head: "
+          f"{flops_per_head / PEAK_FLOPS[torch.float32] * 1e3:.6f} and "
+          f"{flops_per_head / FP64_TC_FLOPS * 1e3:.6f} ms)")
     del x, Bm, Cm, dt, A, dy, states
     torch.cuda.empty_cache()
     return row
@@ -1285,7 +1314,8 @@ def phase_kernels(dev: torch.device, main_err: dict, launches: dict,
     scan_train = scan_row(
         dev, gen, (TRAIN_BATCH, TRAIN_SEQ, m.ssm_heads, m.ssm_head_dim, m.ssm_state,
                    m.ssm_chunk), ssm_train_launches["ssd_scan"], None,
-        f"training: {SSM_ARCH} forward (f32 CUDA cores, cs in f64, chunk-entry states)",
+        f"training: {SSM_ARCH} forward (y f32 CUDA cores, states FP64 tensor cores, cs in "
+        "f64, chunk-entry states)",
         training=True)
     scan_bwd = scan_bwd_row(
         dev, gen, (TRAIN_BATCH, TRAIN_SEQ, m.ssm_heads, m.ssm_head_dim, m.ssm_state,
@@ -1810,11 +1840,11 @@ def phase_train_ssm() -> dict:
 # train profiles: device ms a step of kernels, by substrings of their names
 FLASH_TRAIN_KERNELS = {"flash_bwd_device_ms": ("flash_bwd",),
                        "flash_fwd_device_ms": ("flash_attention_bf16",)}
-# (the scan's training forward and backward each start with the same C·Bᵀ
-# kernel, which the third bucket sums over both)
+# (the scan's training forward starts with its f32 C·Bᵀ kernel, the backward
+# with its tensor-core one; the third bucket sums both)
 SSD_TRAIN_KERNELS = {"ssd_bwd_device_ms": ("ssd_bwd_",),
                      "ssd_fwd_device_ms": ("::fwd_state_kernel(", "::fwd_y_kernel("),
-                     "ssd_cb_device_ms": ("::g_kernel(",)}
+                     "ssd_cb_device_ms": ("::g_kernel(", "::g_f32_kernel(")}
 
 
 def profile_train(model, opt_state, done: int, kernels: dict, what: str = "train") -> dict:
@@ -1931,6 +1961,52 @@ def phase_train_grads() -> dict:
         del model
         torch.cuda.empty_cache()
     return launches
+
+
+def phase_moe_repeat() -> None:
+    """The MoE layer repeats bit for bit on the card: ``loss_fn``'s forward and
+    backward of qwen2-moe-a2.7b at full width (depth cut to MOE_LAYERS) twice
+    on the same weights and batch, the loss and every parameter's gradient
+    equal in every bit. Its combine and the dispatch's backward are gathers
+    summed over each token's slots in a fixed order (``models/moe.py``);
+    ``index_add_`` there would add with atomics."""
+    from repro_torch.configs import replace
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models import init_transformer, loss_fn
+    full = get_config(MOE_ARCH)
+    cfg = replace(full, num_layers=MOE_LAYERS)
+    batch = SyntheticTokens(DataConfig(cfg.vocab_size, TRAIN_SEQ, MOE_BATCH)).batch_at(0)
+    tokens = torch.from_numpy(batch["tokens"]).long().cuda()
+    targets = torch.from_numpy(batch["targets"]).long().cuda()
+    torch.cuda.empty_cache()
+    model = init_transformer(cfg, seed=0, device="cuda").requires_grad_(True)
+    runs = []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(model, tokens, targets)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs.append((loss.detach().clone(),
+                     {n: p.grad.clone() for n, p in model.named_parameters()
+                      if p.grad is not None}))
+    (loss_a, grads_a), (loss_b, grads_b) = runs
+    differ = [n for n, g in grads_a.items() if not torch.equal(g, grads_b[n])]
+    if not torch.equal(loss_a, loss_b) or differ or set(grads_a) != set(grads_b):
+        raise AssertionError(f"moe_repeat: loss {loss_a.item()!r} then {loss_b.item()!r}, "
+                             f"gradients that differ: {differ[:5]}")
+    moe_grads = [n for n in grads_a if ".moe." in n]
+    if not moe_grads or not all(torch.isfinite(grads_a[n]).all() for n in moe_grads):
+        raise AssertionError(f"moe_repeat: MoE gradients {moe_grads[:5]}")
+    print(f"moe_repeat: {MOE_ARCH} at depth {MOE_LAYERS} of {full.num_layers} (full width), "
+          f"B {MOE_BATCH}, S {TRAIN_SEQ}: loss and {len(grads_a)} gradients equal in every "
+          f"bit across two forward and backward runs")
+    emit({"phase": "moe_repeat", "arch": MOE_ARCH, "layers": MOE_LAYERS,
+          "full_layers": full.num_layers, "d_model": cfg.d_model,
+          "experts": cfg.num_experts, "top_k": cfg.top_k, "batch": MOE_BATCH,
+          "seq": TRAIN_SEQ, "loss": float(loss_a), "gradients": len(grads_a),
+          "moe_gradients": len(moe_grads), "bitwise_equal": True})
+    del model, runs, grads_a, grads_b
+    torch.cuda.empty_cache()
 
 
 def phase_train_resume() -> None:
@@ -2063,21 +2139,29 @@ def ssd_work(B: int, L: int, H: int, P: int, N: int, K: int,
     return nbytes, flops
 
 
-def ssd_bwd_work(B: int, L: int, H: int, P: int, N: int, K: int) -> tuple[int, int]:
+def ssd_bwd_work(B: int, L: int, H: int, P: int, N: int, K: int,
+                 dg_per_head: bool = False) -> tuple[int, int]:
     """(bytes, flops) of one scan backward with no h_final cotangent.
 
     Bytes: x, dy, Bm, Cm, dt, A and the chunk-entry states read once, dx, dB,
     dC, ddt and dA written once (f32). Flops, per (b, chunk): C·Bᵀ over the
-    causal half, K(K+1)/2 dots of N, once (shared by every head); per (b, h,
-    chunk), over the causal half: dW = dy·xᵀ and Wᵀ·dy (P a pair each),
-    dG·B and dGᵀ·C (N a pair each); and B·dh, dh·x, h⁻·dy and the state's
-    gradient Cᵀ·dy (K·N·P each), u = B·(dh·x) and C·(h⁻·dy) (K·N each); 2
-    flops a multiply-add. Elementwise work (the scans of dt·A and dcs, the
-    exps, the masks) is left out.
+    causal half, K(K+1)/2 dots of N, once (shared by every head), and dGₛ·B
+    and dGₛᵀ·C (N a pair each over the causal half), dGₛ = Σ_h dG summed over
+    heads first, since B and C are shared by every head; per (b, h, chunk),
+    over the causal half: dW = dy·xᵀ and Wᵀ·dy (P a pair each); and B·dh,
+    dh·x, h⁻·dy, C·h⁻ and the state's gradient Cᵀ·dy (K·N·P each), u and the
+    inbound dcs term (K·P each); 2 flops a multiply-add. Elementwise work (the
+    scans of dt·A and dcs, the exps, the masks) is left out. With
+    ``dg_per_head`` the count of a backward that meets each head's dG with B
+    and C on its own (PR 20's kernel: 32.5 GFLOP at mamba2's training shape).
     """
     n_chunks, tri = L // K, K * (K + 1) // 2
-    flops = 2 * B * n_chunks * (N * tri + H * (2 * P * tri + 2 * N * tri + 4 * K * N * P
-                                               + 2 * K * N))
+    if dg_per_head:
+        flops = 2 * B * n_chunks * (N * tri + H * (2 * P * tri + 2 * N * tri + 4 * K * N * P
+                                                   + 2 * K * N))
+    else:
+        flops = 2 * B * n_chunks * (3 * N * tri + H * (2 * P * tri + 5 * K * N * P
+                                                       + 2 * K * P))
     nbytes = 4 * (3 * B * L * H * P + 4 * B * L * N + 2 * B * L * H + 2 * H
                   + B * n_chunks * H * N * P)
     return nbytes, flops
@@ -2125,6 +2209,7 @@ def main() -> None:
     train_launches = timed("train", phase_train)
     ssm_train_launches = timed("train_ssm", phase_train_ssm)
     grads_launches = timed("train_grads", phase_train_grads)
+    timed("moe_repeat", phase_moe_repeat)
     timed("train_resume", phase_train_resume)
     timed("kernels", phase_kernels, dev, main_err, launches, kv_spill_launches,
           arch_launches, train_launches, grads_launches, ssm_train_launches)

@@ -17,17 +17,29 @@
 // Training runs a second forward, ssd_scan_fwd_states (at the end of this
 // file; serving's code above it is what it was). It also writes the state
 // entering each chunk, states (B, L / chunk, H, N, P), which the backward
-// (ssd_scan_bwd.cu) reads. And it is exact f32 where serving's is 3xTF32
-// and sums cs in f32: with cs summed in f64 (a dt rounded to f32 first) and
-// every product an f32 FMA on the CUDA cores, as the backward computes.
-// Serving's forward under training puts full-width mamba2-780m's f32
-// gradients 1.3e-3 off the plain path's, this one 3.3e-5 (on an H100,
+// (ssd_scan_bwd.cu) reads. And it is f32-exact where serving's is 3xTF32
+// and sums cs in f32: cs summed in f64 (a dt rounded to f32 first), as the
+// backward sums it. Serving's forward under training puts full-width
+// mamba2-780m's f32 gradients 1.3e-3 off the plain path's (on an H100,
 // tools/ssd_grads_split.py; chip_smoke.py holds them to 1e-4): 48 layers
 // amplify serving's ~1e-5 in y. The plain version is
-// ref.py::ssd_chunked(..., cs64=True). Three
-// launches: C . B^T (ssd_f32.cuh), the sweep of h over the chunks a CTA per
-// (b, h), writing each chunk's entering state, then y a CTA per (64-token row
-// block, chunk, h, b) from those states.
+// ref.py::ssd_chunked(..., cs64=True). Three launches:
+// 1. g_f32_kernel: C . B^T, f32 FMAs in order over n on the CUDA cores;
+// 2. fwd_state_kernel, a CTA per (b, h, 32 columns of P): the sweep of h over
+//    the chunks on the FP64 tensor cores (ssd_f32.cuh), writing each chunk's
+//    entering state;
+// 3. fwd_y_kernel, a CTA per (64-token row block, chunk, h, b): y from those
+//    states, f32 FMAs in order over n, then over j, on the CUDA cores.
+// y's products stay f32 FMAs in the order the plain version's f32 products
+// sum them because the gradients are held to the plain path's and 48 layers
+// amplify any difference in y ~1000x: with y's products on the FP64 tensor
+// cores too (exact, so off the plain version by its own f32 rounding, 2.5e-7
+// of y against 3.4e-8 for f32 in its order) full-width mamba2-780m's f32
+// gradients came out 1.6e-4 off (tools/ssd_grads_split.py), past 1e-4. The
+// states carry no such penalty (6.2e-8 off either way) and take the tensor
+// cores. At mamba2-780m's training shape (B 8, L 512, H 48, P 64, N 128,
+// K 256) the function needs 9.81 GFLOP: 0.059 ms at 3xTF32's 165 TFLOP/s,
+// 0.146 ms at the FP64 tensor cores' 67.
 //
 // Bound on this card: operations. At the serving shape (B 4, L 512, H 48,
 // P 64, N 128, K 256) the function needs ~4.9 GFLOP, counting the causal
@@ -469,91 +481,153 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ Bm,
 // The training forward's kernels (see the top of the file).
 namespace ssd_f32 {
 
-// h over the chunks, a CTA per (h, b): thread (tn, tp) owns
-// h[tn + 32 r][tp + 8 q], r < 4, q < 8. Per chunk: h to states, then
-// h <- exp(cs_last) h + sum_j w_j B_j (x) x_j over tiles of 32 tokens,
-// w_j = dt_j exp(cs_last - cs_j); h_final (if not null) after the last.
+// h of one (b, h) and 32 columns of P, rounded to f32, into dst (N x P,
+// row stride P, at column p0 of the slice): warp w's m-tile, rows 16 w..
+static __device__ __forceinline__ void put_state(float* dst, const double (&hs)[1][4][4], int N,
+                                                 int P, int pw) {
+  const int n_base = 16 * (threadIdx.x >> 5);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = n_base + acc_row(0, e), p = acc_col(j, e);
+      if (n < N && p < pw) dst[(long)n * P + p] = static_cast<float>(hs[0][j][e]);
+    }
+}
+
+// h over the chunks, a CTA per (h, b, 32 columns of P): warp w owns state
+// rows 16 w.. (warps past N idle in the products). Per chunk: h to states,
+// then h <- exp(cs_last) h + sum_j (w_j B_j) (x) x_j, w_j = dt_j
+// exp(cs_last - cs_j), over blocks of 32 tokens through a two-stage cp.async
+// ring; h stays in f64 accumulators from chunk to chunk, h_final (if not
+// null) after the last.
 static __global__ void __launch_bounds__(kThreads)
 fwd_state_kernel(const float* __restrict__ x, const float* __restrict__ Bm,
                  const float* __restrict__ dt, const float* __restrict__ A,
                  float* __restrict__ states, float* __restrict__ h_final, int L, int H, int P,
                  int N, int K) {
-  __shared__ __align__(16) float b_tile[32 * kS128], x_tile[32 * kS64];
+  __shared__ __align__(16) float bs[2][kSw * kS128], xs[2][kSw * kS32];
   __shared__ double cs_s[kMaxChunk], wsum[kWarps];
   __shared__ float dt_s[kMaxChunk], w_s[kMaxChunk];
-  const int h = blockIdx.x, b = blockIdx.y, nC = L / K;
-  const int tid = threadIdx.x, tn = tid >> 3, tp = tid & 7;
+  const int h = blockIdx.x, b = blockIdx.y, p0 = blockIdx.z * kPh, nC = L / K;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const bool owns = 16 * warp < N;
   const float a = A[h];
   const long tokH = (long)H * P;
-  float hs[4][8] = {};
+  const bool vec_n = N % 4 == 0, vec_p = P % 4 == 0;
+  const int pw = P - p0, nb = cdiv(K, kSw);
+  double hs[1][4][4];
+  zero(hs);
   for (int c = 0; c < nC; ++c) {
     const int c0 = c * K;
-    float* st = states + (((long)b * nC + c) * H + h) * N * P;
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int n = tn + 32 * r, p = tp + 8 * q;
-        if (n < N && p < P) st[(long)n * P + p] = hs[r][q];
-      }
+    put_state(states + (((long)b * nC + c) * H + h) * N * P + p0, hs, N, P, pw);
+    const float* Bc = Bm + ((long)b * L + c0) * N;
+    const float* xc = x + ((long)b * L + c0) * tokH + (long)h * P + p0;
+    stage<kSw, kMaxN, kS128>(bs[0], Bc, N, K, N, vec_n);
+    stage<kSw, kPh, kS32>(xs[0], xc, tokH, K, pw, vec_p);
+    cp_commit();
     chunk_cs(dt + ((long)b * L + c0) * H + h, H, K, a, cs_s, dt_s, wsum);
     const double cs_last = cs_s[K - 1];
-    if (tid < K) w_s[tid] = dt_s[tid] * expf(static_cast<float>(cs_last - cs_s[tid]));
-    const float e_last = expf(static_cast<float>(cs_last));
+    if (tid < nb * kSw)
+      w_s[tid] = tid < K ? dt_s[tid] * expf(static_cast<float>(cs_last - cs_s[tid])) : 0.f;
+    const double e_last = expf(static_cast<float>(cs_last));
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int q = 0; q < 8; ++q) hs[r][q] *= e_last;
-    const float* Bc = Bm + ((long)b * L + c0) * N;
-    const float* xc = x + ((long)b * L + c0) * tokH + (long)h * P;
-    __syncthreads();                             // w_s ready
-    for (int j0 = 0; j0 < K; j0 += 32) {
-      for (int e = tid; e < 32 * kMaxN; e += kThreads) {
-        const int r = e / kMaxN, n = e % kMaxN, j = j0 + r;
-        b_tile[r * kS128 + n] = j < K && n < N ? w_s[j] * __ldg(Bc + (long)j * N + n) : 0.f;
+      for (int e = 0; e < 4; ++e) hs[0][j][e] *= e_last;
+    for (int s = 0; s < nb; ++s) {
+      if (s + 1 < nb) {
+        const int r0 = (s + 1) * kSw;
+        stage<kSw, kMaxN, kS128>(bs[(s + 1) & 1], Bc + (long)r0 * N, N, K - r0, N, vec_n);
+        stage<kSw, kPh, kS32>(xs[(s + 1) & 1], xc + r0 * tokH, tokH, K - r0, pw, vec_p);
       }
-      for (int e = tid; e < 32 * kMaxP; e += kThreads) {
-        const int r = e / kMaxP, p = e % kMaxP, j = j0 + r;
-        x_tile[r * kS64 + p] = j < K && p < P ? __ldg(xc + (long)j * tokH + p) : 0.f;
-      }
+      cp_commit();
+      cp_wait<1>();
       __syncthreads();
-      const int rows = min(32, K - j0);
-      for (int r = 0; r < rows; ++r) {
-        float bv[4], xv[8];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) bv[k] = b_tile[r * kS128 + tn + 32 * k];
-#pragma unroll
-        for (int k = 0; k < 8; ++k) xv[k] = x_tile[r * kS64 + tp + 8 * k];
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-#pragma unroll
-          for (int m = 0; m < 8; ++m) hs[k][m] += bv[k] * xv[m];
-      }
+      // A(n, j) = B[j][n] w_j, B(j, p) = x[j][p]
+      if (owns)
+        mma_tile<1, 4, 1, kS128, kS32, 1, kScaleK>(hs, bs[s & 1] + 16 * warp, xs[s & 1], kSw,
+                                                   w_s + s * kSw);
       __syncthreads();
     }
   }
-  if (h_final != nullptr) {
-    float* dst = h_final + ((long)b * H + h) * N * P;
+  if (h_final != nullptr) put_state(h_final + ((long)b * H + h) * N * P + p0, hs, N, P, pw);
+}
+
+// 16-byte shared-memory access of the f32 y path
+static __device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+static __device__ __forceinline__ void st4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+static __device__ __forceinline__ float el(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// G_ij = C_i . B_j for the forward's y: f32 FMAs in order over n, on the
+// CUDA cores, as the plain version's f32 product sums (see the top of the
+// file); K x K per (b, chunk) into G (B, L / K, K, K), over the 64 x 64
+// tiles at or below the diagonal; grid (nT * nT, L / K, B), thread (a, q)
+// owns rows 4a.., columns 4q.. of a tile
+static __global__ void __launch_bounds__(kThreads)
+g_f32_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm, float* __restrict__ G,
+         int L, int N, int K) {
+  __shared__ __align__(16) float ct[32 * kS64], bt[32 * kS64];
+  const int nT = (K + kT - 1) / kT, ti = blockIdx.x / nT, tj = blockIdx.x % nT;
+  if (tj > ti) return;
+  const int c = blockIdx.y, b = blockIdx.z, nC = L / K, tid = threadIdx.x;
+  const long row0 = (long)b * L + (long)c * K;
+  const float* Cc = Cm + (row0 + ti * kT) * N;
+  const float* Bc = Bm + (row0 + tj * kT) * N;
+  const int ri = K - ti * kT, rj = K - tj * kT;  // rows of the blocks that exist
+  const int a = tid >> 4, q = tid & 15;
+  float acc[4][4] = {};
+  for (int n0 = 0; n0 < N; n0 += 32) {
+    for (int e = tid; e < kT * 32; e += kThreads) {
+      const int r = e >> 5, nn = e & 31, n = n0 + nn;
+      ct[nn * kS64 + r] = r < ri && n < N ? __ldg(Cc + (long)r * N + n) : 0.f;
+      bt[nn * kS64 + r] = r < rj && n < N ? __ldg(Bc + (long)r * N + n) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int nn = 0; nn < 32; ++nn) {
+      const float4 cv = ld4(ct + nn * kS64 + 4 * a), bv = ld4(bt + nn * kS64 + 4 * q);
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+      for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int n = tn + 32 * r, p = tp + 8 * q;
-        if (n < N && p < P) dst[(long)n * P + p] = hs[r][q];
-      }
+        for (int s = 0; s < 4; ++s) acc[r][s] += el(cv, r) * el(bv, s);
+    }
+    __syncthreads();
+  }
+  float* Gc = G + ((long)b * nC + c) * K * K;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = ti * kT + 4 * a + r;
+    if (i >= K) continue;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int j = tj * kT + 4 * q + s;
+      if (j < K) Gc[(long)i * K + j] = acc[r][s];
+    }
   }
 }
+
 
 // shared memory of fwd_y_kernel, in floats: cs, wsum (doubles), dt, then the
 // larger of its two views
 constexpr int kYHead = 2 * kMaxChunk + 2 * kWarps + kMaxChunk;
 constexpr int kYSmem = kYHead + 2 * kMaxN * kS64;
 static_assert(kYHead % 4 == 0, "16-byte aligned tiles");
-static_assert(2 * kT * kS64 <= 2 * kMaxN * kS64, "the loop view fits the init view");
+static_assert(3 * kT * kS64 <= 2 * kMaxN * kS64, "the loop view fits the init view");
 
 // y of row block ib (heaviest first), chunk, head, batch: exp(cs_i) C_i . h-
 // plus sum_{j<=i} W_ij x_j, W_ij = G_ij exp(cs_i - cs_j) dt_j (0 above the
-// diagonal, by select). Thread (iq, pq) owns y[4 iq + r][4 pq + q].
+// diagonal, by select), f32 FMAs in order over n and then over j, on the CUDA
+// cores (see the top of the file). Thread (iq, pq) owns y[4 iq + r][4 pq + q].
+// h- and x's rows come by cp.async, x through a two-stage ring, and each
+// tile's G values one tile ahead into registers, so the loads of block j + 1
+// overlap the products of block j.
 static __global__ void __launch_bounds__(kThreads)
 fwd_y_kernel(const float* __restrict__ x, const float* __restrict__ Cm,
              const float* __restrict__ dt, const float* __restrict__ A,
@@ -566,8 +640,8 @@ fwd_y_kernel(const float* __restrict__ x, const float* __restrict__ Cm,
   float* U = reinterpret_cast<float*>(smem4) + kYHead;
   float* ct = U;                                 // init: C[i][n] at [n][i]
   float* hn = ct + kMaxN * kS64;                 //       h-[n][p] at [n][p]
-  float* xn = U;                                 // loop: x[j][p] at [j][p]
-  float* wt = xn + kT * kS64;                    //       W[i][j] at [j][i]
+  float* xn = U;                                 // loop: x[j][p] at [j][p], two stages
+  float* wt = xn + 2 * kT * kS64;                //       W[i][j] at [j][i]
 
   const int nT = (K + kT - 1) / kT, ib = nT - 1 - blockIdx.x, i0 = ib * kT;
   const int c = blockIdx.y / H, h = blockIdx.y % H, b = blockIdx.z, nC = L / K, c0 = c * K;
@@ -577,16 +651,17 @@ fwd_y_kernel(const float* __restrict__ x, const float* __restrict__ Cm,
   const float* Cc = Cm + ((long)b * L + c0) * N;
   const float* hp = states + (((long)b * nC + c) * H + h) * N * P;
   const float* Gc = G + ((long)b * nC + c) * K * K;
+  const bool vec_p = P % 4 == 0;
 
+  stage<kMaxN, kMaxP, kS64>(hn, hp, P, N, P, vec_p);
+  cp_commit();
   for (int e = tid; e < kT * kMaxN; e += kThreads) {
     const int r = e / kMaxN, n = e % kMaxN, i = i0 + r;
     ct[n * kS64 + r] = i < K && n < N ? __ldg(Cc + (long)i * N + n) : 0.f;
   }
-  for (int e = tid; e < kMaxN * kMaxP; e += kThreads) {
-    const int n = e / kMaxP, p = e % kMaxP;
-    hn[n * kS64 + p] = n < N && p < P ? __ldg(hp + (long)n * P + p) : 0.f;
-  }
   chunk_cs(dt + ((long)b * L + c0) * H + h, H, K, A[h], cs_s, dt_s, wsum);
+  cp_wait<0>();
+  __syncthreads();
 
   float acc[4][4] = {};
   for (int n = 0; n < N; ++n) {
@@ -605,12 +680,25 @@ fwd_y_kernel(const float* __restrict__ x, const float* __restrict__ Cm,
   }
   __syncthreads();                               // the init view is read
 
+  float gv[4][4];                                // G of the next tile, rows 4 hi.., columns 4 lo..
+  auto load_g = [&](int j0) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int i = i0 + 4 * hi + r, j = j0 + 4 * lo + s;
+        gv[r][s] = i < K && j <= i ? __ldg(Gc + (long)i * K + j) : 0.f;
+      }
+  };
+  stage<kT, kMaxP, kS64>(xn, xc, tokH, K, P, vec_p);
+  cp_commit();
+  load_g(0);
   for (int jb = 0; jb <= ib; ++jb) {
     const int j0 = jb * kT;
-    for (int e = tid; e < kT * kMaxP; e += kThreads) {
-      const int r = e / kMaxP, p = e % kMaxP, j = j0 + r;
-      xn[r * kS64 + p] = j < K && p < P ? __ldg(xc + (long)j * tokH + p) : 0.f;
-    }
+    if (jb < ib)
+      stage<kT, kMaxP, kS64>(xn + ((jb + 1) & 1) * kT * kS64, xc + (long)(j0 + kT) * tokH,
+                             tokH, K - j0 - kT, P, vec_p);
+    cp_commit();
     float w[4][4];                               // rows 4 hi.., columns 4 lo..
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -621,17 +709,20 @@ fwd_y_kernel(const float* __restrict__ x, const float* __restrict__ Cm,
         w[r][s] = 0.f;
         if (i < K && j <= i) {
           const float lij = expf(fminf(static_cast<float>(cs_s[i] - cs_s[j]), 0.f));
-          w[r][s] = __ldg(Gc + (long)i * K + j) * lij * dt_s[j];
+          w[r][s] = gv[r][s] * lij * dt_s[j];
         }
       }
     }
+    if (jb < ib) load_g(j0 + kT);
 #pragma unroll
     for (int s = 0; s < 4; ++s)
       st4(wt + (4 * lo + s) * kS64 + 4 * hi, w[0][s], w[1][s], w[2][s], w[3][s]);
+    cp_wait<1>();
     __syncthreads();
+    const float* xs = xn + (jb & 1) * kT * kS64;
     const int cols = min(kT, K - j0);
     for (int jj = 0; jj < cols; ++jj) {
-      const float4 wv = ld4(wt + jj * kS64 + 4 * hi), xv = ld4(xn + jj * kS64 + 4 * lo);
+      const float4 wv = ld4(wt + jj * kS64 + 4 * hi), xv = ld4(xs + jj * kS64 + 4 * lo);
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
@@ -685,9 +776,9 @@ extern "C" int ssd_scan_fwd(const void* x, const void* Bm, const void* Cm,
 }
 
 // The training forward (see the top of the file): y, h_final (may be null)
-// and the state entering each chunk, states (B, L / chunk, H, N, P); all f32
-// CUDA-core arithmetic, cs in f64. cb_scratch holds C . B^T, K x K a (b,
-// chunk): the same buffer ssd_scan_fwd takes is large enough. Returns
+// and the state entering each chunk, states (B, L / chunk, H, N, P); every
+// product on the FP64 tensor cores, cs in f64. cb_scratch holds C . B^T, K x K
+// a (b, chunk): the same buffer ssd_scan_fwd takes is large enough. Returns
 // cudaGetLastError() after the launches (0 = launched).
 extern "C" int ssd_scan_fwd_states(const void* x, const void* Bm, const void* Cm,
                                    const void* dt, const void* A, void* y, void* h_final,
@@ -703,16 +794,16 @@ extern "C" int ssd_scan_fwd_states(const void* x, const void* Bm, const void* Cm
       f::kYSmem * static_cast<int>(sizeof(float)));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nC = L / chunk, nT = (chunk + f::kT - 1) / f::kT;
+  const int nC = L / chunk, nT = f::cdiv(chunk, f::kT);
   const float *fx = static_cast<const float*>(x), *fB = static_cast<const float*>(Bm),
               *fC = static_cast<const float*>(Cm), *fdt = static_cast<const float*>(dt),
               *fA = static_cast<const float*>(A);
   float* G = static_cast<float*>(cb_scratch);
   float* fst = static_cast<float*>(states);
   cudaError_t e;
-  f::g_kernel<<<dim3(nT * nT, nC, B), f::kThreads, 0, s>>>(fB, fC, G, L, N, chunk);
+  f::g_f32_kernel<<<dim3(nT * nT, nC, B), f::kThreads, 0, s>>>(fB, fC, G, L, N, chunk);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  f::fwd_state_kernel<<<dim3(H, B), f::kThreads, 0, s>>>(
+  f::fwd_state_kernel<<<dim3(H, B, f::cdiv(P, f::kPh)), f::kThreads, 0, s>>>(
       fx, fB, fdt, fA, fst, static_cast<float*>(h_final), L, H, P, N, chunk);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   f::fwd_y_kernel<<<dim3(nT, nC * H, B), f::kThreads, f::kYSmem * sizeof(float), s>>>(

@@ -9,10 +9,11 @@ last chunk, (B, H, N, P) f32, which serving needs to start decode.
 
 When an input requires a gradient (and autograd is on) the call goes
 through ``SSDScan``, a ``torch.autograd.Function``: its forward launches the
-scan's training forward (``ssd_scan_fwd_states`` in the same source: exact
-f32 on the CUDA cores, cs summed in f64, the state entering each chunk
-written; ``ssd_chunked(..., cs64=True)`` on CPU tensors), and its backward
-launches ``csrc/ssd_scan_bwd.cu`` on CUDA tensors
+scan's training forward (``ssd_scan_fwd_states`` in the same source: y in
+f32 on the CUDA cores, the state sweep on the FP64 tensor cores, cs summed in
+f64, the state entering each chunk written; ``ssd_chunked(..., cs64=True)``
+on CPU tensors), and its backward launches ``csrc/ssd_scan_bwd.cu`` (every
+product on the FP64 tensor cores) on CUDA tensors
 (one count in ``bwd_launches`` a call) or runs ``ssd_scan_bwd_ref`` on CPU
 tensors. Otherwise (serving, ``torch.no_grad()``) nothing is saved and the
 forward launches exactly as it does without autograd.
@@ -102,8 +103,8 @@ def _check(x, Bm, Cm, dt, A, chunk: int, what: str) -> None:
 def _launch(x, Bm, Cm, dt, A, chunk: int, return_state: bool, with_states: bool = False):
     """y and h_final (None unless ``return_state``); with ``with_states`` also
     the state entering each chunk, (B, L // chunk, H, N, P), from the training
-    forward (f32 on the CUDA cores, cs in f64) instead of serving's 3×TF32
-    tensor-core scan."""
+    forward (f32-exact, cs in f64) instead of serving's 3×TF32 tensor-core
+    scan."""
     global launches
     _check(x, Bm, Cm, dt, A, chunk, "ssd_scan")
     B, L, H, P = x.shape

@@ -4,9 +4,18 @@ Twin of ``repro/models/moe.py``. Tokens are routed top-k, their gates
 renormalised, the (token, expert) pairs stably sorted by expert and packed
 into per-expert buffers of capacity ``C`` (pairs past an expert's capacity
 go to a trash row and are dropped), the experts run as batched SwiGLU
-products over (E, C, M), and each kept pair's output is scatter-added back
-to its token in f32, weighted by its gate. Shared experts are one dense
-SwiGLU of width ``num_shared_experts · moe_d_ff``.
+products over (E, C, M), and each kept pair's output, weighted by its gate,
+is added back to its token in f32. Shared experts are one dense SwiGLU of
+width ``num_shared_experts · moe_d_ff``.
+
+The reference scatter-adds the pairs' outputs (``.at[src].add``). Here both
+directions are gathers, so the layer repeats bit for bit on the card: an
+``index_add_`` into a CUDA tensor, or the backward of ``xt[src]`` (an
+accumulate over repeated indices), adds with atomics in an order that
+changes from run to run. Each token's K slots (a (T, K) slot map, a zero row
+for a dropped pair) are gathered and summed over k in order, and the
+buffers' gradient gathers back by the same maps (``_Dispatch``,
+``_Combine``): the values are the same sums.
 
 The reference's ``_moe_shard_map`` (shard-local dispatch over a device
 mesh) becomes this single-device dispatch: ``cfg.moe_shard_map`` is a
@@ -52,6 +61,77 @@ def capacity(tokens: int, cfg: ModelConfig) -> int:
     return max(8, -(-cap // 8) * 8)  # round up to 8
 
 
+class _Dispatch(torch.autograd.Function):
+    """grouped = xt[src] · occupied (E·C, M); its gradient gathers each
+    token's K slots (``slot_map`` (T, K), E·C for a dropped pair) and sums
+    them over k, where autograd's would add into repeated rows."""
+
+    @staticmethod
+    def forward(ctx, xt, src, occupied, slot_map):
+        ctx.save_for_backward(slot_map)
+        return xt[src] * occupied[:, None].to(xt.dtype)
+
+    @staticmethod
+    def backward(ctx, dgrouped):
+        (slot_map,) = ctx.saved_tensors
+        return _gather_sum(dgrouped, slot_map), None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """y (T, M) = each token's K slots of ``contrib`` (E·C, M) summed over k
+    in order (a zero row for a dropped pair); its gradient is dy gathered by
+    each occupied slot's token."""
+
+    @staticmethod
+    def forward(ctx, contrib, slot_map, src, occupied):
+        ctx.save_for_backward(src, occupied)
+        return _gather_sum(contrib, slot_map)
+
+    @staticmethod
+    def backward(ctx, dy):
+        src, occupied = ctx.saved_tensors
+        return dy[src] * occupied[:, None].to(dy.dtype), None, None, None
+
+
+def _gather_sum(rows: torch.Tensor, slot_map: torch.Tensor) -> torch.Tensor:
+    """out[t] = Σ_k rows[slot_map[t, k]] in order of k; index len(rows) is a
+    zero row."""
+    padded = torch.cat([rows, rows.new_zeros(1, rows.shape[1])])
+    picked = padded[slot_map]                                        # (T, K, M)
+    out = picked[:, 0]
+    for k in range(1, slot_map.shape[1]):
+        out = out + picked[:, k]
+    return out
+
+
+def _slots(expert_idx: torch.Tensor, E: int, C: int):
+    """Sort-based slots of the (token, expert) pairs of ``expert_idx`` (T, K)
+    in E buffers of C rows: (order, the stable sort of the pairs by expert;
+    valid, each sorted pair kept; slot, its row, E·C (the trash row) when
+    dropped; src (E·C,), each row's token; occupied (E·C,); slot_map (T, K),
+    pair t·K + k's row, E·C when dropped)."""
+    T, K = expert_idx.shape
+    dev = expert_idx.device
+    flat_e = expert_idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    counts = torch.zeros(E, dtype=torch.long, device=dev).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(T * K, device=dev) - starts[sorted_e]
+    valid = rank < C
+    slot = torch.where(valid, sorted_e * C + rank, E * C)
+    token_of = order // K
+
+    src = torch.zeros(E * C + 1, dtype=torch.long, device=dev)
+    src[slot] = token_of
+    occupied = torch.zeros(E * C + 1, dtype=torch.bool, device=dev)
+    occupied[slot] = valid
+    slot_map = torch.empty(T * K, dtype=torch.long, device=dev)
+    slot_map[order] = slot
+    return order, valid, slot, src[:-1], occupied[:-1], slot_map.view(T, K)
+
+
 def _dispatch(xt: torch.Tensor, p: MoE, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``_dispatch_core`` over all E experts: xt (T, M) → (y (T, M) f32, aux)."""
@@ -69,25 +149,10 @@ def _dispatch(xt: torch.Tensor, p: MoE, cfg: ModelConfig
     ce = torch.zeros(E, device=dev).index_add_(0, flat_e, ones) / (T * K)
     aux = cfg.router_aux_weight * E * torch.sum(probs.mean(dim=0) * ce)
 
-    # sort-based dispatch: row E·C is the trash row of dropped pairs
     C = capacity(T, cfg)
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
-    counts = torch.zeros(E, dtype=torch.long, device=dev).index_add_(
-        0, flat_e, torch.ones_like(flat_e))
-    starts = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(T * K, device=dev) - starts[sorted_e]
-    valid = rank < C
-    slot = torch.where(valid, sorted_e * C + rank, E * C)
-    token_of = order // K
+    order, valid, slot, src, occupied, slot_map = _slots(expert_idx, E, C)
 
-    src = torch.zeros(E * C + 1, dtype=torch.long, device=dev)
-    src[slot] = token_of
-    occupied = torch.zeros(E * C + 1, dtype=torch.bool, device=dev)
-    occupied[slot] = valid
-    src, occupied = src[:-1], occupied[:-1]
-
-    grouped = (xt[src] * occupied[:, None].to(xt.dtype)).view(E, C, M)
+    grouped = _Dispatch.apply(xt, src, occupied, slot_map).view(E, C, M)
     h = torch.bmm(grouped, p.wi)
     g = torch.bmm(grouped, p.wg)
     yg = torch.bmm(h * F.silu(g), p.wo).view(E * C, M)
@@ -96,8 +161,8 @@ def _dispatch(xt: torch.Tensor, p: MoE, cfg: ModelConfig
     w_of_slot = torch.zeros(E * C + 1, device=dev)
     w_of_slot[slot] = w_slot
     w_of_slot = w_of_slot[:-1]
-    y = torch.zeros((T, M), dtype=torch.float32, device=dev).index_add_(
-        0, src, yg.float() * w_of_slot[:, None] * occupied[:, None])
+    y = _Combine.apply(yg.float() * w_of_slot[:, None] * occupied[:, None], slot_map, src,
+                       occupied)
     return y, aux
 
 

@@ -211,3 +211,33 @@ def test_ssd_op_backward_launches_the_kernel_on_gpu(cuda):
     assert ssd.bwd_launches == before[1] + 1
     with pytest.raises(TypeError):                 # f32 only, as the forward
         ssd.ssd_scan_op(leaves[0].double(), *leaves[1:], chunk=chunk)
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 512, 48, 64, 128, 256),   # mamba2-780m's training shape, train_ssm's B 8
+    (4, 512, 50, 64, 16, 256),    # hymba-1.5b's N 16, train_grads' B 4
+    (2, 200, 2, 33, 70, 100),     # ragged: two row blocks, N and P off the tiles
+], ids=["mamba2_train", "hymba_n16", "ragged"])
+def test_ssd_training_kernels_at_training_shapes_on_gpu(cuda, shape):
+    """The training forward (its y in f32 in the plain version's order, its
+    states on the FP64 tensor cores) and the backward (FP64 tensor cores) at
+    the shapes training runs: held to the plain versions and to equal bits on
+    a repeat of each."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    chunk = shape[-1]
+    x, Bm, Cm, dt, A, dy, _ = (torch.from_numpy(a).to(cuda) for a in inputs(shape, 9))
+    fwd = ssd._launch(x, Bm, Cm, dt, A, chunk, True, with_states=True)
+    again = ssd._launch(x, Bm, Cm, dt, A, chunk, True, with_states=True)
+    plain = ssd_chunked(x, Bm, Cm, dt, A, chunk=chunk, return_states=True, cs64=True)
+    torch.cuda.synchronize()
+    for name, got, rep, want in zip(("y", "h_final", "states"), fwd, again, plain):
+        assert torch.equal(got, rep), f"{name}: two runs differ"
+        assert rel(got.cpu(), want.cpu()) <= BWD_TOL, name
+    states = fwd[2]
+    got = ssd._launch_bwd(x, Bm, Cm, dt, A, states, dy, None, chunk)
+    rep = ssd._launch_bwd(x, Bm, Cm, dt, A, states, dy, None, chunk)
+    want = ssd_scan_bwd_ref(x, Bm, Cm, dt, A, states, dy, None, chunk=chunk)
+    torch.cuda.synchronize()
+    for name, a, b, w in zip(GRADS, got, rep, want):
+        assert torch.equal(a, b), f"{name}: two runs differ"
+        assert rel(a.cpu(), w.cpu()) <= BWD_TOL, name
