@@ -104,7 +104,28 @@ Phases, each printing one JSON line:
    state sweep on the FP64 tensor cores) and backward (FP64 tensor cores)
    at mamba2-780m's training shape (B 8, S 512), the backward also at
    hymba-1.5b's N 16 (B 4); the scan's training rows give the bound at 3×TF32
-   and at the FP64 tensor cores they run.
+   and at the FP64 tensor cores they run;
+22. steps: ``launch.steps``' step builders on a real 1×1 ``DeviceMesh``
+   (``make_local_mesh``, nccl) at full width, random weights from seed 0,
+   the reference's dry-run shapes cut to one card (``STEP_RUNS``):
+   qwen1.5-0.5b ``prefill_32k`` (flash) and ``decode_32k`` over a 32768-token
+   paged cache (paged attention), mamba2-780m ``prefill_32k`` (the scan),
+   mamba2-780m and hymba-1.5b ``long_500k`` (8 decode steps each); each run's
+   host seconds around work that ends in a sync, the port's own roofline
+   bound for the same cut shape on one card (``launch.dryrun.roofline_of``,
+   counted on meta with the H100's constants), the share of that bound,
+   kernel launches (held above zero for the kernel named) and peak memory.
+   Each run's kernel once more on the inputs of its last launch in the step
+   (a 32768-token causal prompt for flash, the 32768-token pool at B 4 for
+   paged attention, 128 chunks of mamba2's 48 heads for the scan) against its
+   plain version at ``kernels_vs_plain``'s tolerance; then, on an f32 copy of
+   the weights, the prefill step's logits against ``Transformer.prefill``
+   and every decode step's against the same steps, each with the plain
+   versions swapped in (``plain_kernels``), held to 0.05. The two
+   ``long_500k`` decodes launch no kernel (the SSM state and hymba's ring are
+   plain torch in both packages), so there is nothing to swap: their logits
+   are held finite and of the vocabulary's width, and ``hybrid_decode`` and
+   ``serve_ssm`` hold the same decode code against a forward.
 
 Each phase's seconds are printed as it ends and gathered in a ``phase_seconds``
 line. The last line is ``{"ok": true, "device": {...}}``. Any failure raises
@@ -141,6 +162,7 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd  # noqa: E402
+from repro_torch.kernels.ssd_scan.ops import ssd_bwd_work, ssd_work  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
     ssd_chunked, ssd_ref, ssd_scan_bwd_ref)
 from repro_torch.launch import serve  # noqa: E402
@@ -251,6 +273,23 @@ TRAIN_LOSS_DROP = 0.1       # tests/test_system.py::test_training_reduces_loss
 # max|a − b| / max(|b|, 1) per gradient: both sum cs, dcs and dA in f64 and the
 # rest in f32 in other orders (~4e-7 on an H100 at mamba2's training shape).
 SSD_BWD_TOL = 1e-4
+# steps: (arch, the reference's shape, batch on one card, decode steps, the
+# kernel the run must launch, why the shape was cut). Sequence lengths are the
+# reference's; only batches are cut.
+STEP_RUNS = (
+    ("qwen1.5-0.5b", "prefill_32k", 1, 0, "flash_attention",
+     "B 32 → 1: one 32768-token prompt's activations and 24 layers' K/V fill a "
+     "share of the card; 32 would not fit beside them"),
+    ("qwen1.5-0.5b", "decode_32k", 4, 8, "paged_attention",
+     "B 128 → 4: a 32768-token cache is 3.2 GB a sequence (412 GB at B 128); "
+     "4 sequences are a 12.9 GB pool"),
+    ("mamba2-780m", "prefill_32k", 1, 0, "ssd_scan",
+     "B 32 → 1, as qwen's prefill"),
+    ("mamba2-780m", "long_500k", 1, 8, None,
+     "B 1 as the shape; 8 decode steps on a fixed-size SSM state"),
+    ("hymba-1.5b", "long_500k", 1, 8, None,
+     "B 1 as the shape; 8 decode steps on the 1024-token ring and the SSM state"),
+)
 
 
 def emit(obj: dict) -> None:
@@ -784,9 +823,9 @@ def phase_serve_archs() -> dict:
 @contextlib.contextmanager
 def plain_kernels():
     """Within the block, flash attention and the scan (each forward and
-    backward) run their plain versions (those the CPU path runs) on the
-    card's tensors, and launch nothing."""
-    saved = fa._launch, fa._launch_bwd, ssd._launch, ssd._launch_bwd
+    backward) and paged attention run their plain versions (those the CPU
+    path runs) on the card's tensors, and launch nothing."""
+    saved = fa._launch, fa._launch_bwd, ssd._launch, ssd._launch_bwd, pa._launch
     fa._launch = lambda q, k, v, causal, window, with_lse=False: flash_attention_online(
         q, k, v, causal=causal, window=window, q_offset=k.shape[1] - q.shape[1],
         return_lse=with_lse)
@@ -796,10 +835,12 @@ def plain_kernels():
         x, Bm, Cm, dt, A, chunk=chunk, return_states=with_states, cs64=with_states)
     ssd._launch_bwd = lambda x, Bm, Cm, dt, A, states, dy, dh, chunk: ssd_scan_bwd_ref(
         x, Bm, Cm, dt, A, states, dy, dh, chunk=chunk)
+    pa._launch = lambda q, kv, starts, valid, lengths, R, *launch_shape: (
+        pa.paged_attention_plain(q, kv, starts, valid, lengths, pages_per_block=R))
     try:
         yield
     finally:
-        fa._launch, fa._launch_bwd, ssd._launch, ssd._launch_bwd = saved
+        fa._launch, fa._launch_bwd, ssd._launch, ssd._launch_bwd, pa._launch = saved
 
 
 # (run, dtype, plain): the serving path in bf16, the same with its prefill
@@ -1029,13 +1070,6 @@ def phase_profile_ssm(model, prompts) -> None:
           "decode": profile_summary(rows, wall, steps)})
 
 
-def attended_pairs(S: int, window) -> int:
-    """(query, key) pairs a causal prompt of S tokens scores, with an optional window."""
-    if window is None or window >= S:
-        return S * (S + 1) // 2
-    return window * (window + 1) // 2 + (S - window) * window
-
-
 def flash_row(dev, gen, B: int, S: int, H: int, Kh: int, D: int, launches: int,
               err: float, case: str, window=None, lse: bool = False) -> dict:
     """The flash kernel's row of the kernels line: causal bf16 prefill of S
@@ -1064,7 +1098,7 @@ def flash_row(dev, gen, B: int, S: int, H: int, Kh: int, D: int, launches: int,
                                                                     attn_mask=mask)
     elem = torch.finfo(dt).bits // 8
     flash_bytes = (2 * q.numel() + k.numel() + v.numel()) * elem + lse * B * H * S * 4
-    flash_flops = 4 * D * B * H * attended_pairs(S, window)   # QK^T and PV
+    flash_flops = fa.flash_work(q.shape, k.shape, True, window)   # QK^T and PV
     fb, fby = bound_ms(flash_bytes, flash_flops, dt)
     if lse:
         def kernel():
@@ -2086,7 +2120,7 @@ def flash_bwd_row(dev, gen, B: int, S: int, H: int, Kh: int, D: int, launches: i
     del grads, plain
     elem = torch.finfo(dt).bits // 8
     nbytes = (4 * q.numel() + 4 * k.numel()) * elem + 2 * lse.numel() * 4
-    flops = 10 * D * B * H * attended_pairs(S, None)
+    flops = fa.flash_work(q.shape, k.shape, True, None) * 5 // 2
     bb, bby = bound_ms(nbytes, flops, dt)
     qt, kt, vt = (x.repeat_interleave(H // x.shape[2], dim=2).transpose(1, 2).contiguous()
                   .requires_grad_() for x in (q, k, v))
@@ -2119,52 +2153,239 @@ def flash_bwd_row(dev, gen, B: int, S: int, H: int, Kh: int, D: int, launches: i
     return row
 
 
-def ssd_work(B: int, L: int, H: int, P: int, N: int, K: int,
-             states: bool = False) -> tuple[int, int]:
-    """(bytes, flops) of one SSD scan with the final state written (and, with
-    ``states``, the state entering each chunk).
+@contextlib.contextmanager
+def last_launch(*mods):
+    """Within the block, each module's ``_launch`` keeps the arguments of its
+    last call: yields {module: [args, kwargs]}."""
+    saved, seen = {m: m._launch for m in mods}, {m: [] for m in mods}
 
-    Bytes: x, Bm, Cm, dt and A read once, y and h_final (and the states)
-    written once (f32).
-    Flops, per (b, chunk): C·Bᵀ over the causal half, K(K+1)/2 dots of N,
-    once (it is shared by every head); per (b, h, chunk): the masked scores
-    times x over the causal half (P per score), C·h_prev (K·N·P) and the
-    state update (K·N·P); 2 flops a multiply-add. Elementwise work (the
-    scan of dt·A, the exps, the masks) is left out.
-    """
-    n_chunks, tri = L // K, K * (K + 1) // 2
-    flops = 2 * B * n_chunks * (N * tri + H * (P * tri + 2 * K * N * P))
-    nbytes = 4 * (2 * B * L * H * P + 2 * B * L * N + B * L * H + H + B * H * N * P
-                  + states * B * n_chunks * H * N * P)
-    return nbytes, flops
+    def keeper(m):
+        def launch(*args, **kw):
+            seen[m][:] = [args, kw]
+            return saved[m](*args, **kw)
+        return launch
+
+    for m in mods:
+        m._launch = keeper(m)
+    try:
+        yield seen
+    finally:
+        for m in mods:
+            m._launch = saved[m]
 
 
-def ssd_bwd_work(B: int, L: int, H: int, P: int, N: int, K: int,
-                 dg_per_head: bool = False) -> tuple[int, int]:
-    """(bytes, flops) of one scan backward with no h_final cotangent.
+def kernel_at_step(kernel: str, args: tuple, what: str) -> dict:
+    """The kernel once more on the inputs its last launch in a step had, against
+    its plain version on the same inputs, at the tolerance ``kernels_vs_plain``
+    holds it to (f32 products on the plain side)."""
+    tf32, torch.backends.cuda.matmul.allow_tf32 = torch.backends.cuda.matmul.allow_tf32, False
+    try:
+        if kernel == "flash_attention":
+            q, k, v, causal, window = args[:5]
+            tol = FLASH_TOL[q.dtype]
+            out = fa._launch(q, k, v, causal, window)
+            errs = {"out": max_err(out, flash_attention_online(
+                q, k, v, causal=causal, window=window, q_offset=k.shape[1] - q.shape[1]),
+                tol, what)}
+            shape = [list(q.shape), list(k.shape)]
+        elif kernel == "paged_attention":
+            q, kv, starts, valid, lengths, R = args[:6]
+            tol = PAGED_TOL[q.dtype]
+            errs = {"out": max_err(pa._launch(*args), pa.paged_attention_plain(
+                q, kv, starts, valid, lengths, pages_per_block=R), tol, what)}
+            shape = [list(q.shape), list(kv.shape), int(lengths.max())]
+        else:
+            x, Bm, Cm, dt, A, chunk = args[:6]
+            tol = SSD_SERVING_TOL
+            y, h = ssd._launch(x, Bm, Cm, dt, A, chunk, True)
+            y_plain, h_plain = ssd_chunked(x, Bm, Cm, dt, A, chunk=chunk)
+            errs = {"y": max_err(y, y_plain, tol, what),
+                    "h_final": max_err(h, h_plain, tol, what + " h_final")}
+            shape = [list(x.shape), Bm.shape[-1], chunk]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return {"kernel": kernel, "shape": shape, "tol": tol, "max_abs_err": errs}
 
-    Bytes: x, dy, Bm, Cm, dt, A and the chunk-entry states read once, dx, dB,
-    dC, ddt and dA written once (f32). Flops, per (b, chunk): C·Bᵀ over the
-    causal half, K(K+1)/2 dots of N, once (shared by every head), and dGₛ·B
-    and dGₛᵀ·C (N a pair each over the causal half), dGₛ = Σ_h dG summed over
-    heads first, since B and C are shared by every head; per (b, h, chunk),
-    over the causal half: dW = dy·xᵀ and Wᵀ·dy (P a pair each); and B·dh,
-    dh·x, h⁻·dy, C·h⁻ and the state's gradient Cᵀ·dy (K·N·P each), u and the
-    inbound dcs term (K·P each); 2 flops a multiply-add. Elementwise work (the
-    scans of dt·A and dcs, the exps, the masks) is left out. With
-    ``dg_per_head`` the count of a backward that meets each head's dG with B
-    and C on its own (PR 20's kernel: 32.5 GFLOP at mamba2's training shape).
-    """
-    n_chunks, tri = L // K, K * (K + 1) // 2
-    if dg_per_head:
-        flops = 2 * B * n_chunks * (N * tri + H * (2 * P * tri + 2 * N * tri + 4 * K * N * P
-                                                   + 2 * K * N))
-    else:
-        flops = 2 * B * n_chunks * (3 * N * tri + H * (2 * P * tri + 5 * K * N * P
-                                                       + 2 * K * P))
-    nbytes = 4 * (3 * B * L * H * P + 4 * B * L * N + 2 * B * L * H + 2 * H
-                  + B * n_chunks * H * N * P)
-    return nbytes, flops
+
+def f32_copy(model):
+    """An f32 copy of ``model`` on the card (the original keeps its dtypes)."""
+    import copy
+    return copy.deepcopy(model).float()
+
+
+def steps_prefill(model, mesh, cfg, shape, run, tokens, kernel):
+    """One timed prefill through ``build_prefill_step``; the kernel at the
+    step's inputs against its plain version, and the step's logits on an
+    f32 copy against ``Transformer.prefill`` with the plain versions
+    swapped in. Returns (seconds, launches, peak GB, checks)."""
+    from repro_torch.launch.steps import build_prefill_step, place_model
+    step, _, (p_shard,) = build_prefill_step(cfg, shape, run, mesh)
+    place_model(model, p_shard, mesh, local=True)
+    mod = LAUNCH_COUNTERS[kernel][0]
+    with last_launch(mod) as seen:
+        step(model, {"tokens": tokens})            # warm-up: cuBLAS, allocator
+    at_step = kernel_at_step(kernel, seen[mod][0], f"steps {cfg.name} {kernel} at the step")
+    del seen, _
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = step(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    del logits, cache
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    m32 = f32_copy(model)
+    got, cache = step(m32, {"tokens": tokens})
+    del cache
+    with plain_kernels():
+        want = m32.prefill(tokens.to_local(), m32.init_cache(*tokens.shape))
+    err = rel_err(want, got)
+    del m32, got, want
+    torch.cuda.empty_cache()
+    if not err < DECODE_VS_FORWARD_TOL:
+        raise AssertionError(f"steps {cfg.name} prefill in f32 vs Transformer.prefill "
+                             f"with the plain versions: {err:.4f}")
+    return seconds, launches, peak, {"kernel_at_step": at_step,
+                                     "f32_vs_plain_prefill": err}
+
+
+def decode_run(step, model, cache, token, start: int, steps: int) -> list:
+    """``steps`` decode steps from position ``start``: each step's logits."""
+    return [step(model, cache, token, np.full(token.shape[0], start + i))[0]
+            for i in range(steps)]
+
+
+def steps_decode(model, mesh, cfg, shape, tokens, steps, kernel, gen):
+    """``steps`` timed decode steps through ``build_decode_step`` on a cache
+    of ``shape.seq_len`` positions filled at random; with a kernel, the kernel
+    at the step's inputs against its plain version, and every step's logits
+    on an f32 copy against the same steps with the plain versions swapped in
+    (each step writes its own slot before it reads the cache and later
+    slots lie past its length, so the second run reads what the first did).
+    Returns (seconds, launches, peak GB, checks)."""
+    from repro_torch.launch.steps import build_decode_step, place_model
+    from repro_torch.models.transformer import cache_tensors
+    step, (_, _), (p_shard,) = build_decode_step(cfg, shape, mesh)
+    place_model(model, p_shard, mesh, local=True)
+    batch, start = tokens.shape[0], shape.seq_len - steps - 1
+
+    def filled(m):
+        cache = m.init_cache(batch, shape.seq_len)
+        for t in cache_tensors(cache).values():
+            t.normal_(generator=gen).mul_(0.1)
+        return cache
+
+    cache = filled(model)
+    mods = (LAUNCH_COUNTERS[kernel][0],) if kernel else ()
+    with last_launch(*mods) as seen:
+        step(model, cache, tokens[:, 0], np.full(batch, start))       # warm-up
+    checks = {}
+    if kernel:
+        checks["kernel_at_step"] = kernel_at_step(kernel, seen[mods[0]][0],
+                                                  f"steps {cfg.name} {kernel} at the step")
+    del seen
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = decode_run(step, model, cache, tokens[:, 0], start + 1, steps)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for lg in logits:
+        if tuple(lg.shape) != (batch, cfg.padded_vocab) or not torch.isfinite(lg).all():
+            raise AssertionError(f"steps {cfg.name}: decode logits {tuple(lg.shape)} "
+                                 "or not finite")
+    del cache, logits
+    torch.cuda.empty_cache()
+    if kernel:
+        m32 = f32_copy(model)
+        cache = filled(m32)
+        step(m32, cache, tokens[:, 0], np.full(batch, start))
+        got = decode_run(step, m32, cache, tokens[:, 0], start + 1, steps)
+        with plain_kernels():
+            want = decode_run(step, m32, cache, tokens[:, 0], start + 1, steps)
+        checks["f32_vs_plain_decode"] = max(rel_err(w, g) for w, g in zip(want, got))
+        del m32, cache, got, want
+        torch.cuda.empty_cache()
+        if not checks["f32_vs_plain_decode"] < DECODE_VS_FORWARD_TOL:
+            raise AssertionError(f"steps {cfg.name} decode in f32 vs the plain versions: "
+                                 f"{checks['f32_vs_plain_decode']:.4f}")
+    return seconds, launches, peak, checks
+
+
+@torch.no_grad()
+def phase_steps(smi: str) -> dict:
+    """``STEP_RUNS`` through ``launch.steps`` on a 1×1 mesh: seconds, bound,
+    share, launches, peak memory, the kernel at the step's own inputs against
+    its plain version, the step against the plain versions on an f32 copy
+    (module docstring, phase 22)."""
+    import dataclasses
+
+    from repro_torch.configs import SHAPES, RunConfig
+    from repro_torch.distributed.sharding import batch_spec, distribute, placements
+    from repro_torch.launch.dryrun import roofline_of
+    from repro_torch.launch.mesh import close_mesh, make_local_mesh
+    from repro_torch.models import init_transformer
+    mesh = make_local_mesh(1, 1)
+    run, out, models = RunConfig(), {}, {}
+    try:
+        for arch, shape_name, batch, steps, kernel, why in STEP_RUNS:
+            cfg = get_config(arch)
+            shape = dataclasses.replace(SHAPES[shape_name], global_batch=batch)
+            bound = roofline_of(cfg, shape, run)           # on meta, one card
+            if arch not in models:
+                models.clear()
+                torch.cuda.empty_cache()
+                models[arch] = init_transformer(cfg, seed=0, device="cuda")
+            model = models[arch]
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            tokens = torch.randint(0, cfg.vocab_size, (batch, shape.seq_len if not steps
+                                                       else 1), generator=gen, device="cuda")
+            tokens = distribute(tokens, mesh, placements(batch_spec(mesh, batch), mesh))
+            if steps == 0:
+                seconds, launches, peak, checks = steps_prefill(model, mesh, cfg, shape, run,
+                                                                tokens, kernel)
+                bound_s = bound.floor_s
+            else:
+                seconds, launches, peak, checks = steps_decode(model, mesh, cfg, shape,
+                                                               tokens, steps, kernel, gen)
+                bound_s = bound.floor_s * steps
+            if kernel is not None and not launches[kernel] > 0:
+                raise AssertionError(f"steps {arch} {shape_name}: {kernel} never launched "
+                                     f"({launches})")
+            row = {"phase": "steps", "arch": arch, "shape": shape_name, "batch": batch,
+                   "seq_len": shape.seq_len, "decode_steps": steps, "cut": why,
+                   "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                   "seconds": seconds, "bound_s": bound_s,
+                   "bound_by": "compute" if bound.compute_s >= bound.min_memory_s
+                   else "min_bytes",
+                   "share_of_bound": bound_s / seconds,
+                   "bound_terms_s": {"compute": bound.compute_s,
+                                     "min_memory": bound.min_memory_s,
+                                     "unfused_memory": bound.memory_s},
+                   "counted": {"flops": bound.hlo_flops, "f32_flops": bound.f32_flops,
+                               "unfused_bytes": bound.hlo_bytes,
+                               "min_bytes": bound.min_bytes,
+                               "kernels": bound.memory_stats["kernels"]},
+                   "launches": launches, "checks": checks, "held_at": DECODE_VS_FORWARD_TOL,
+                   "peak_mem_gb": peak, "card": smi}
+            print(f"steps {arch} {shape_name} B {batch}: {seconds:.6f} s, bound "
+                  f"{bound_s:.6f} s ({row['bound_by']}), share {row['share_of_bound']:.4f}, "
+                  f"launches {launches}, peak {peak:.2f} GB, checks {checks} [{smi}]")
+            emit(row)
+            out[(arch, shape_name)] = launches
+    finally:
+        models.clear()
+        close_mesh()
+        torch.cuda.empty_cache()
+    return out
 
 
 PHASE_SECONDS: dict = {}
@@ -2211,6 +2432,7 @@ def main() -> None:
     grads_launches = timed("train_grads", phase_train_grads)
     timed("moe_repeat", phase_moe_repeat)
     timed("train_resume", phase_train_resume)
+    timed("steps", phase_steps, smi)
     timed("kernels", phase_kernels, dev, main_err, launches, kv_spill_launches,
           arch_launches, train_launches, grads_launches, ssm_train_launches)
     emit({"phase_seconds": PHASE_SECONDS, "total_s": time.perf_counter() - t_start})

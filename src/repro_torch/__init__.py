@@ -11,10 +11,13 @@ from __future__ import annotations
 import torch
 
 
-def resolve_device(device: str | torch.device = "cuda") -> torch.device:
-    """``"cpu"`` stays the CPU; anything else must be a visible CUDA device."""
+def resolve_device(device: str | torch.device = "cuda", *,
+                   allow_meta: bool = False) -> torch.device:
+    """``"cpu"`` stays the CPU; ``"meta"`` (shapes only, nothing allocated)
+    only where the caller allows it, as the dry run's model construction
+    does; anything else must be a visible CUDA device."""
     dev = torch.device(device)
-    if dev.type == "cpu":
+    if dev.type == "cpu" or (dev.type == "meta" and allow_meta):
         return dev
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")

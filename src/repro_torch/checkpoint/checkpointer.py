@@ -13,8 +13,11 @@ model's parameters plus the optimizer state. ``save`` copies every leaf to
 the host in the caller's thread, so the caller may update its tensors in
 place right after, even with ``blocking=False`` (only the disk writes run
 in the background). ``restore`` loads into the structure of ``like``, each
-leaf on the device and in the dtype of ``like``'s leaf. Re-sharding onto
-another mesh waits for the mesh (ROADMAP.md §1, item 11).
+leaf on the device and in the dtype of ``like``'s leaf; with ``shardings``
+(a tree of ``(mesh, placements)`` pairs, or ``None`` leaves, parallel to
+``like``) each leaf is re-placed with ``distribute_tensor``, so a checkpoint
+saved on one mesh restores onto another (elastic). A DTensor leaf is saved
+whole (``full_tensor``).
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
+
+from ..distributed.sharding import distribute
 
 PyTree = Any
 
@@ -53,6 +58,8 @@ def _flatten_with_paths(tree: PyTree) -> Tuple[List[Tuple[str, Any]], Any]:
 def _to_host(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     """(numpy array to save, dtype name for the manifest); a copy, never a view."""
     t = t.detach()
+    if hasattr(t, "full_tensor"):
+        t = t.full_tensor()
     name = _NUMPY_DTYPE.get(t.dtype)
     if name == "bfloat16":
         return t.view(torch.uint16).to("cpu", copy=True).numpy(), name
@@ -117,18 +124,28 @@ class Checkpointer:
                 out.append(int(p.name.split("_")[1]))
         return sorted(out)
 
-    def restore(self, step: int, like: PyTree) -> Tuple[PyTree, Dict]:
+    def restore(self, step: int, like: PyTree,
+                shardings: Optional[PyTree] = None) -> Tuple[PyTree, Dict]:
         """Load a checkpoint into the structure of ``like``: each leaf on the
-        device and in the dtype of ``like``'s leaf."""
+        device and in the dtype of ``like``'s leaf; with ``shardings`` (a tree
+        parallel to ``like`` of ``(mesh, placements)`` pairs, ``None`` where a
+        leaf stays a plain tensor) each leaf distributed onto its mesh, as
+        the reference's ``device_put`` to its shardings (the mesh may differ
+        from save time)."""
         path = self.dir / f"step_{step}"
         manifest = json.loads((path / "manifest.json").read_text())
         flat_like, spec = pytree.tree_flatten(like)
+        flat_shard = ([None] * len(flat_like) if shardings is None else
+                      pytree.tree_flatten(shardings, is_leaf=lambda x: x is None or (
+                          isinstance(x, tuple) and len(x) == 2 and hasattr(x[0], "mesh_dim_names")))[0])
+        if len(flat_shard) != len(flat_like):
+            raise ValueError(f"shardings has {len(flat_shard)} leaves, like {len(flat_like)}")
         n = len(manifest["leaves"])
         want = sum(leaf is not None for leaf in flat_like)
         if n != want:
             raise ValueError(f"checkpoint has {n} leaves, expected {want}")
         loaded, i = [], 0
-        for ref in flat_like:
+        for ref, where in zip(flat_like, flat_shard):
             if ref is None:
                 loaded.append(None)
                 continue
@@ -139,14 +156,18 @@ class Checkpointer:
             if tuple(t.shape) != tuple(ref.shape):
                 raise ValueError(f"leaf {manifest['leaves'][i]}: shape {tuple(t.shape)} "
                                  f"vs {tuple(ref.shape)}")
-            loaded.append(t.to(device=ref.device, dtype=ref.dtype))
+            t = t.to(device=ref.device, dtype=ref.dtype)
+            if where is not None:
+                t = distribute(t, *where)
+            loaded.append(t)
             i += 1
         return pytree.tree_unflatten(loaded, spec), manifest["extra"]
 
-    def restore_latest(self, like: PyTree) -> Optional[Tuple[int, PyTree, Dict]]:
+    def restore_latest(self, like: PyTree, shardings: Optional[PyTree] = None
+                       ) -> Optional[Tuple[int, PyTree, Dict]]:
         steps = self.steps()
         if not steps:
             return None
         step = steps[-1]
-        state, extra = self.restore(step, like)
+        state, extra = self.restore(step, like, shardings)
         return step, state, extra

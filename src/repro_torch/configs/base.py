@@ -1,16 +1,18 @@
-"""Model config dataclass: a copy of ``repro/configs/base.py``'s ``ModelConfig``.
+"""Config dataclasses: copies of ``repro/configs/base.py``'s ``ModelConfig``,
+``ShapeConfig``, ``SHAPES``, ``RunConfig`` and ``cell_supported``.
 
 The port keeps its own copy (it may import nothing from ``repro``): the
-fields, the ``uses_*`` flags, ``d_inner``, ``sub_quadratic`` and the
-analytic ``param_count`` / ``active_param_count``. The tests hold the two
-field-for-field equal for every arch and the counts equal.
+fields, the ``uses_*`` flags, ``d_inner``, ``sub_quadratic``, the analytic
+``param_count`` / ``active_param_count``, the four dry-run shapes and the
+rule that only a sub-quadratic arch decodes at 524288 tokens. The tests hold
+the two field-for-field equal for every arch and the counts equal.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -137,6 +139,22 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
 class RunConfig:
     """Training/serving hyperparameters + fault-tolerance knobs."""
 
@@ -152,6 +170,15 @@ class RunConfig:
     checkpoint_dir: str = "/tmp/repro_ckpt"
     keep_checkpoints: int = 3
     seed: int = 0
+
+
+def cell_supported(model: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Is (arch × shape) runnable? long_500k needs sub-quadratic attention."""
+    if shape.name == "long_500k" and not model.sub_quadratic:
+        return False, ("skipped: pure full-attention arch cannot decode at "
+                       "524288 context (quadratic prefill / unbounded KV); "
+                       "see DESIGN.md §Arch-applicability")
+    return True, ""
 
 
 def replace(cfg, **kw):

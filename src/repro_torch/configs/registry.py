@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import importlib
+from typing import Dict
 
 from .base import ModelConfig
 
@@ -35,3 +36,7 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_reduced(arch: str) -> ModelConfig:
     return _module(arch).REDUCED
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}

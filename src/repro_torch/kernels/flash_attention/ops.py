@@ -12,17 +12,24 @@ keeps each query row's log-sum-exp, and its backward launches
 ``bwd_launches`` a call) or runs ``flash_attention_bwd_ref`` on CPU
 tensors. Otherwise (serving, ``torch.no_grad()``) nothing is saved and the
 forward launches exactly as it does without autograd.
+
+On meta tensors both directions go through the custom ops
+``repro_torch::flash_attention`` and ``repro_torch::flash_attention_bwd``
+(``kernels/__init__.py``): shapes, and the kernels' own counts.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from .. import _build
+from ...distributed.sharding import refuse_dtensor
+from .. import _build, meta_only, register_bytes
 from .ref import flash_attention_bwd_ref, flash_attention_online
 
 HEAD_DIMS = (32, 64, 128, 192)      # 192: MLA's qk_nope + qk_rope
@@ -35,14 +42,25 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        causal: bool = True,
                        window: Optional[int] = None) -> torch.Tensor:
     """q: (B, Sq, H, D); k, v: (B, Skv, Kh, D). Returns (B, Sq, H, D)."""
+    refuse_dtensor("flash_attention", q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"window must be ≥ 1 or None, got {window}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window, False)
+
+
+def _forward(q, k, v, causal: bool, window: Optional[int], with_lse: bool):
+    """out, or (out, LSE (B, H, Sq) f32) ``with_lse``: the plain version on
+    the CPU, the custom op's shapes on meta, else the kernel."""
     if q.device.type == "cpu":
         return flash_attention_online(q, k, v, causal=causal, window=window,
-                                      q_offset=k.shape[1] - q.shape[1])
-    return _launch(q, k, v, causal, window)
+                                      q_offset=k.shape[1] - q.shape[1], return_lse=with_lse)
+    if q.device.type == "meta":
+        out, lse = torch.ops.repro_torch.flash_attention(q, k, v, causal, window or 0,
+                                                         with_lse)
+        return (out, lse) if with_lse else out
+    return _launch(q, k, v, causal, window, with_lse=with_lse)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -51,12 +69,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
-        if q.device.type == "cpu":
-            out, lse = flash_attention_online(q, k, v, causal=causal, window=window,
-                                              q_offset=k.shape[1] - q.shape[1],
-                                              return_lse=True)
-        else:
-            out, lse = _launch(q, k, v, causal, window, with_lse=True)
+        out, lse = _forward(q, k, v, causal, window, True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
@@ -69,9 +82,82 @@ class FlashAttention(torch.autograd.Function):
             dq, dk, dv = flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=ctx.causal,
                                                  window=ctx.window,
                                                  q_offset=k.shape[1] - q.shape[1])
+        elif q.device.type == "meta":
+            dq, dk, dv = torch.ops.repro_torch.flash_attention_bwd(
+                q, k, v, out, lse, dout, ctx.causal, ctx.window or 0)
         else:
             dq, dk, dv = _launch_bwd(q, k, v, out, lse, dout, ctx.causal, ctx.window)
         return dq, dk, dv, None, None
+
+
+# ---------------------------------------------------------------------------
+# the kernels as custom ops (meta: shapes and counts) and their work
+# ---------------------------------------------------------------------------
+
+def attended_pairs(Sq: int, Skv: int, causal: bool, window: Optional[int]) -> int:
+    """(query, key) pairs the kernel scores: query row i sits at position
+    i + Skv − Sq; it sees keys up to it (``causal``) and, with a window, the
+    last ``window`` of them."""
+    pos = np.arange(Sq, dtype=np.int64) + (Skv - Sq)
+    hi = np.minimum(pos, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(pos - window + 1, 0) if window else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_work(q_shape, k_shape, causal: bool, window: Optional[int]) -> int:
+    """Operations of one forward: QKᵀ and PV, 2·D each a scored pair."""
+    B, Sq, H, D = q_shape
+    return 4 * D * B * H * attended_pairs(Sq, k_shape[1], causal, window)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+              window: int, with_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, LSE or an empty tensor): meta tensors only (its fake)."""
+    raise meta_only("flash_attention")
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, window, with_lse):
+    B, Sq, H, _ = q.shape
+    lse = q.new_empty((B, H, Sq) if with_lse else (0,), dtype=torch.float32)
+    return torch.empty_like(q), lse
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _(q, k, v, causal, window, with_lse, *args, out_shape=None, **kw) -> int:
+    return flash_work(q, k, causal, window or None)
+
+
+@register_bytes(torch.ops.repro_torch.flash_attention)
+def _(q, k, v, causal, window, with_lse, *, result) -> int:
+    return sum(t.numel() * t.element_size() for t in (q, k, v, *result))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                  lse: torch.Tensor, dout: torch.Tensor, causal: bool,
+                  window: int) -> List[torch.Tensor]:
+    """(dq, dk, dv): meta tensors only (its fake)."""
+    raise meta_only("flash_attention_bwd")
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, out, lse, dout, causal, window):
+    return [torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)]
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _(q, k, v, out, lse, dout, causal, window, *args, out_shape=None, **kw) -> int:
+    """Five products of 2·D a scored pair: S again, dV, dP, dQ, dK."""
+    return flash_work(q, k, causal, window or None) * 5 // 2
+
+
+@register_bytes(torch.ops.repro_torch.flash_attention_bwd)
+def _(q, k, v, o, lse, dout, causal, window, *, result) -> int:
+    """q, k, v, o, dO and the LSE read, Δ written and read, dq, dk, dv written."""
+    return (sum(t.numel() * t.element_size() for t in (q, k, v, o, dout, *result))
+            + 2 * lse.numel() * 4)
 
 
 def _check(q, k, v) -> None:

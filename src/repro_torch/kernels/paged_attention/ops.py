@@ -13,6 +13,11 @@ sequence's descriptors over S CTAs (flash-decoding), and lets a CTA cover
 stage. All of it comes from what the host knows without asking the
 device: ``count_live_blocks`` on the numpy plan and lengths, and
 ``launch_shape`` and ``box_tokens`` over the shapes and the SM count.
+
+On meta tensors the call goes through the custom op
+``repro_torch::paged_attention`` (``kernels/__init__.py``): the output's
+shape, and the kernel's own count for ``live_blocks`` descriptors a
+sequence (the host's count; every sequence at that length).
 """
 
 from __future__ import annotations
@@ -23,9 +28,11 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
+from ...distributed.sharding import refuse_dtensor
 from ...memory.kv_cache import plan_page_runs
-from .. import _build
+from .. import _build, meta_only, register_bytes
 
 NEG_INF = -1e30
 MAX_GROUP = 8                       # query heads per KV head the kernel takes
@@ -181,6 +188,7 @@ def paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     and without it the plan's own count (or NB) stands in. ``splits`` and
     ``heads_per_cta`` fix what ``launch_shape`` would choose.
     """
+    refuse_dtensor("paged_attention", q, kv_pages, lengths)
     if plan is None:
         starts, valid = plan_blocks(np.asarray(page_table), pages_per_block)
         if live_blocks is None:     # lengths stay on the device: count every valid one
@@ -191,6 +199,10 @@ def paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     if q.device.type == "cpu":
         return paged_attention_plain(q, kv_pages, block_start, block_valid,
                                      lengths, pages_per_block=pages_per_block)
+    if q.device.type == "meta":
+        return torch.ops.repro_torch.paged_attention(
+            q, kv_pages, block_start, block_valid, lengths, pages_per_block,
+            block_start.shape[1] if live_blocks is None else live_blocks)
     if torch.is_grad_enabled() and (q.requires_grad or kv_pages.requires_grad):
         raise NotImplementedError(
             "paged_attention is decode-only and has no backward kernel: it takes no "
@@ -200,6 +212,44 @@ def paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
         live_blocks = block_start.shape[1]
     return _launch(q, kv_pages, block_start, block_valid, lengths,
                    pages_per_block, live_blocks, splits, heads_per_cta)
+
+
+def paged_tokens(q_shape, kv_shape, block_shape, pages_per_block: int,
+                 live_blocks: int) -> int:
+    """K/V tokens the kernel reads: ``live_blocks`` descriptors of R pages
+    for each of the B sequences."""
+    return q_shape[0] * min(live_blocks, block_shape[1]) * pages_per_block * kv_shape[1]
+
+
+@torch.library.custom_op("repro_torch::paged_attention", mutates_args=())
+def _paged_op(q: torch.Tensor, kv_pages: torch.Tensor, block_start: torch.Tensor,
+              block_valid: torch.Tensor, lengths: torch.Tensor, pages_per_block: int,
+              live_blocks: int) -> torch.Tensor:
+    """``paged_attention`` on a planned table: meta tensors only (its fake)."""
+    raise meta_only("paged_attention")
+
+
+@_paged_op.register_fake
+def _(q, kv_pages, block_start, block_valid, lengths, pages_per_block, live_blocks):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.paged_attention)
+def _(q, kv, starts, valid, lengths, pages_per_block, live_blocks, *args,
+      out_shape=None, **kw) -> int:
+    """q·K and P·V, 2·D each a query head and token read."""
+    B, H, D = q
+    return 4 * D * H * paged_tokens(q, kv, starts, pages_per_block, live_blocks)
+
+
+@register_bytes(torch.ops.repro_torch.paged_attention)
+def _(q, kv, starts, valid, lengths, pages_per_block, live_blocks, *, result) -> int:
+    """q read and the output written, each token's K and V read once, the
+    descriptors and lengths read."""
+    _, _, _, Kh, D = kv.shape
+    tokens = paged_tokens(q.shape, kv.shape, starts.shape, pages_per_block, live_blocks)
+    return ((2 * q.numel() + tokens * 2 * Kh * D) * q.element_size()
+            + (starts.numel() + valid.numel() + lengths.numel()) * 4)
 
 
 @functools.cache

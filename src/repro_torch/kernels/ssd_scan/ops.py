@@ -17,17 +17,24 @@ product on the FP64 tensor cores) on CUDA tensors
 (one count in ``bwd_launches`` a call) or runs ``ssd_scan_bwd_ref`` on CPU
 tensors. Otherwise (serving, ``torch.no_grad()``) nothing is saved and the
 forward launches exactly as it does without autograd.
+
+On meta tensors the serving forward, the training forward and the backward
+go through the custom ops ``repro_torch::ssd_scan`` and
+``repro_torch::ssd_scan_bwd`` (``kernels/__init__.py``): shapes, and the
+kernels' own counts (``ssd_work``, ``ssd_bwd_work``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from .. import _build
+from ...distributed.sharding import refuse_dtensor
+from .. import _build, meta_only, register_bytes
 from .ref import ssd_chunked, ssd_scan_bwd_ref
 
 MAX_CHUNK, MAX_STATE, MAX_HEAD_DIM = 256, 128, 64
@@ -42,12 +49,16 @@ def ssd_scan_op(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
                 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """x (B, L, H, P); Bm, Cm (B, L, N); dt (B, L, H); A (H,) → y (B, L, H, P)
     [, h_final (B, H, N, P)]. Requires L % chunk == 0."""
+    refuse_dtensor("ssd_scan", x, Bm, Cm, dt, A)
     if chunk < 1 or x.shape[1] % chunk:
         raise ValueError(f"L must be a multiple of chunk (L {x.shape[1]}, chunk {chunk})")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, Bm, Cm, dt, A)):
         y, h = SSDScan.apply(x, Bm, Cm, dt, A, chunk)
     elif x.device.type == "cpu":
         y, h = ssd_chunked(x, Bm, Cm, dt, A, chunk=chunk)
+    elif x.device.type == "meta":
+        y, h, _ = torch.ops.repro_torch.ssd_scan(x, Bm, Cm, dt, A, chunk, return_state,
+                                                 False)
     else:
         y, h = _launch(x, Bm, Cm, dt, A, chunk, return_state)
     return (y, h) if return_state else y
@@ -63,6 +74,8 @@ class SSDScan(torch.autograd.Function):
         if x.device.type == "cpu":
             y, h, states = ssd_chunked(x, Bm, Cm, dt, A, chunk=chunk, return_states=True,
                                        cs64=True)
+        elif x.device.type == "meta":
+            y, h, states = torch.ops.repro_torch.ssd_scan(x, Bm, Cm, dt, A, chunk, True, True)
         else:
             y, h, states = _launch(x, Bm, Cm, dt, A, chunk, True, with_states=True)
         ctx.save_for_backward(x, Bm, Cm, dt, A, states)
@@ -77,9 +90,121 @@ class SSDScan(torch.autograd.Function):
         dh = None if dh is None else dh.contiguous()
         if x.device.type == "cpu":
             grads = ssd_scan_bwd_ref(x, Bm, Cm, dt, A, states, dy, dh, chunk=ctx.chunk)
+        elif x.device.type == "meta":
+            grads = torch.ops.repro_torch.ssd_scan_bwd(x, Bm, Cm, dt, A, states, dy, dh,
+                                                       ctx.chunk)
         else:
             grads = _launch_bwd(x, Bm, Cm, dt, A, states, dy, dh, ctx.chunk)
         return (*(g.to(t.dtype) for g, t in zip(grads, (x, Bm, Cm, dt, A))), None)
+
+
+# ---------------------------------------------------------------------------
+# the kernels as custom ops (meta: shapes and counts) and their work
+# ---------------------------------------------------------------------------
+
+def ssd_work(B: int, L: int, H: int, P: int, N: int, K: int,
+             states: bool = False) -> Tuple[int, int]:
+    """(bytes, flops) of one SSD scan with the final state written (and, with
+    ``states``, the state entering each chunk).
+
+    Bytes: x, Bm, Cm, dt and A read once, y and h_final (and the states)
+    written once (f32).
+    Flops, per (b, chunk): C·Bᵀ over the causal half, K(K+1)/2 dots of N,
+    once (it is shared by every head); per (b, h, chunk): the masked scores
+    times x over the causal half (P per score), C·h_prev (K·N·P) and the
+    state update (K·N·P); 2 flops a multiply-add. Elementwise work (the
+    scan of dt·A, the exps, the masks) is left out.
+    """
+    n_chunks, tri = L // K, K * (K + 1) // 2
+    flops = 2 * B * n_chunks * (N * tri + H * (P * tri + 2 * K * N * P))
+    nbytes = 4 * (2 * B * L * H * P + 2 * B * L * N + B * L * H + H + B * H * N * P
+                  + states * B * n_chunks * H * N * P)
+    return nbytes, flops
+
+
+def ssd_bwd_work(B: int, L: int, H: int, P: int, N: int, K: int,
+                 dg_per_head: bool = False) -> Tuple[int, int]:
+    """(bytes, flops) of one scan backward with no h_final cotangent.
+
+    Bytes: x, dy, Bm, Cm, dt, A and the chunk-entry states read once, dx, dB,
+    dC, ddt and dA written once (f32). Flops, per (b, chunk): C·Bᵀ over the
+    causal half, K(K+1)/2 dots of N, once (shared by every head), and dGₛ·B
+    and dGₛᵀ·C (N a pair each over the causal half), dGₛ = Σ_h dG summed over
+    heads first, since B and C are shared by every head; per (b, h, chunk),
+    over the causal half: dW = dy·xᵀ and Wᵀ·dy (P a pair each); and B·dh,
+    dh·x, h⁻·dy, C·h⁻ and the state's gradient Cᵀ·dy (K·N·P each), u and the
+    inbound dcs term (K·P each); 2 flops a multiply-add. Elementwise work (the
+    scans of dt·A and dcs, the exps, the masks) is left out. With
+    ``dg_per_head`` the count of a backward that meets each head's dG with B
+    and C on its own (PR 20's kernel: 32.5 GFLOP at mamba2's training shape).
+    """
+    n_chunks, tri = L // K, K * (K + 1) // 2
+    if dg_per_head:
+        flops = 2 * B * n_chunks * (N * tri + H * (2 * P * tri + 2 * N * tri + 4 * K * N * P
+                                                   + 2 * K * N))
+    else:
+        flops = 2 * B * n_chunks * (3 * N * tri + H * (2 * P * tri + 5 * K * N * P
+                                                       + 2 * K * P))
+    nbytes = 4 * (3 * B * L * H * P + 4 * B * L * N + 2 * B * L * H + 2 * H
+                  + B * n_chunks * H * N * P)
+    return nbytes, flops
+
+
+def _dims(x_shape, bm_shape) -> Tuple[int, int, int, int, int]:
+    B, L, H, P = x_shape
+    return B, L, H, P, bm_shape[-1]
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
+def _scan_op(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, dt: torch.Tensor,
+             A: torch.Tensor, chunk: int, return_state: bool,
+             with_states: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(y, h_final, chunk-entry states), empty where not asked for: the
+    serving forward, or ``with_states`` the training forward. Meta tensors
+    only (its fake)."""
+    raise meta_only("ssd_scan")
+
+
+@_scan_op.register_fake
+def _(x, Bm, Cm, dt, A, chunk, return_state, with_states):
+    B, L, H, P, N = _dims(x.shape, Bm.shape)
+    h = x.new_empty((B, H, N, P) if return_state or with_states else (0,))
+    states = x.new_empty((B, L // chunk, H, N, P) if with_states else (0,))
+    return torch.empty_like(x), h, states
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def _(x, Bm, Cm, dt, A, chunk, return_state, with_states, *args, out_shape=None,
+      **kw) -> int:
+    return ssd_work(*_dims(x, Bm), chunk, states=with_states)[1]
+
+
+@register_bytes(torch.ops.repro_torch.ssd_scan)
+def _(x, Bm, Cm, dt, A, chunk, return_state, with_states, *, result) -> int:
+    return ssd_work(*_dims(x.shape, Bm.shape), chunk, states=with_states)[0]
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_bwd", mutates_args=())
+def _scan_bwd_op(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, dt: torch.Tensor,
+                 A: torch.Tensor, states: torch.Tensor, dy: torch.Tensor,
+                 dh: Optional[torch.Tensor], chunk: int) -> List[torch.Tensor]:
+    """(dx, dB, dC, ddt, dA): meta tensors only (its fake)."""
+    raise meta_only("ssd_scan_bwd")
+
+
+@_scan_bwd_op.register_fake
+def _(x, Bm, Cm, dt, A, states, dy, dh, chunk):
+    return [torch.empty_like(t) for t in (x, Bm, Cm, dt, A)]
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd)
+def _(x, Bm, Cm, dt, A, states, dy, dh, chunk, *args, out_shape=None, **kw) -> int:
+    return ssd_bwd_work(*_dims(x, Bm), chunk)[1]
+
+
+@register_bytes(torch.ops.repro_torch.ssd_scan_bwd)
+def _(x, Bm, Cm, dt, A, states, dy, dh, chunk, *, result) -> int:
+    return ssd_bwd_work(*_dims(x.shape, Bm.shape), chunk)[0]
 
 
 def _check(x, Bm, Cm, dt, A, chunk: int, what: str) -> None:

@@ -12,10 +12,14 @@ remote paging system carrying real training state.
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu
 
 It runs on the card unless ``--device cpu`` is given (the kernels' plain
-versions, as in the tests). Every arch trains on either device. One device
-only: ``--data``/``--model`` other than 1 wait for the mesh (ROADMAP.md §1,
-item 11). The default ``--ckpt-dir`` differs from the reference's, so the
-port never resumes a JAX checkpoint.
+versions, as in the tests). Every arch trains on either device. The step is
+built on ``make_local_mesh(--data, --model)``: the parameters are placed by
+the sharding rules and the moments by ``optim_rules`` (ZeRO-1), and a
+checkpoint restores onto those placements; the step runs on this device's
+shards. One process is one rank, so the mesh is 1 × 1 and a larger one
+fails with the count of devices this process sees. The default
+``--ckpt-dir`` differs from the reference's, so the port never resumes a
+JAX checkpoint.
 
 ``--offload`` sizes its donors to hold the whole first moment: the
 reference's 3 donors of 1 << 16 pages hold 98,304 pages with replication
@@ -37,7 +41,8 @@ from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import RunConfig, get_config, get_reduced
 from repro_torch.core.descriptors import PAGE_SIZE
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens
-from repro_torch.launch.steps import build_train_step
+from repro_torch.launch.mesh import close_mesh, make_local_mesh
+from repro_torch.launch.steps import build_train_step, place_model, shardings
 from repro_torch.models import Transformer, init_transformer
 from repro_torch.optim import adamw
 
@@ -93,11 +98,7 @@ def _offload_spec(tree: Dict[str, torch.Tensor]) -> box.ClusterSpec:
 
 
 def main(argv: Optional[List[str]] = None) -> TrainResult:
-    ap = _parser()
-    args = ap.parse_args(argv)
-    if args.data != 1 or args.model != 1:
-        ap.error("--data/--model other than 1 need the device mesh "
-                 "(ROADMAP.md §1, item 11): the port trains on one device")
+    args = _parser().parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     run = RunConfig(learning_rate=args.lr, total_steps=args.steps,
@@ -105,24 +106,41 @@ def main(argv: Optional[List[str]] = None) -> TrainResult:
                     remat=args.remat, grad_compression=args.grad_compression,
                     checkpoint_dir=args.ckpt_dir,
                     checkpoint_every=args.ckpt_every)
-    print(f"arch={cfg.name} params≈{cfg.param_count()/1e6:.1f}M "
-          f"mesh={ {'data': args.data, 'model': args.model} }")
+    opened = not torch.distributed.is_initialized()
+    mesh = make_local_mesh(args.data, args.model, device=device)
+    try:
+        return _train(args, cfg, run, device, mesh)
+    finally:
+        if opened:
+            close_mesh()
 
-    train_step = build_train_step(cfg, run)
+
+def _train(args, cfg, run: RunConfig, device: torch.device, mesh) -> TrainResult:
+    print(f"arch={cfg.name} params≈{cfg.param_count()/1e6:.1f}M "
+          f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+
+    train_step = build_train_step(cfg, run, mesh)
     model = init_transformer(cfg, seed=run.seed, device=device)
+    p_shard, m_shard = shardings(cfg, model, mesh)
+    place_model(model, p_shard, mesh, local=True)
     model.requires_grad_(True)
     params = dict(model.named_parameters())
-    opt_state = adamw.init(params, run)
+    opt_state = adamw.init(params, run, shardings=m_shard, mesh=mesh)
 
     ckpt = Checkpointer(run.checkpoint_dir, keep=run.keep_checkpoints)
     start_step = 0
-    restored = ckpt.restore_latest((params, opt_state))
+    moments = {n: (mesh, m_shard[n]) for n in params}
+    restored = ckpt.restore_latest(
+        (params, opt_state),
+        ({n: (mesh, p_shard[n]) for n in params},
+         adamw.OptState(None, moments, moments, moments if run.grad_compression else None)))
     if restored is not None:
         start_step, (saved, opt_state), extra = restored
         with torch.no_grad():
             for name, p in params.items():
-                p.copy_(saved[name])
+                p.copy_(saved[name].to_local())
         print(f"resumed from step {start_step}")
+    opt_state = adamw.local_state(opt_state)
 
     offload_mgr = session = None
     if args.offload:

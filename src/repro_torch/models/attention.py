@@ -20,13 +20,15 @@ MLA's latent cache.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import (Shards, flatten, keep_grad_sharded, on_local_shards,
+                                    split_last)
 from ..kernels.flash_attention.ops import flash_attention_op
 from ..kernels.paged_attention.ops import (count_live_blocks, paged_attention,
                                            plan_blocks)
@@ -37,6 +39,10 @@ NEG_INF = -1e30
 
 
 class Attention(nn.Module):
+    AXES = {"wq": ("embed", "q_flat"), "wk": ("embed", "kv_flat"),
+            "wv": ("embed", "kv_flat"), "wo": ("q_flat", "embed"),
+            "bq": ("q_flat",), "bk": ("kv_flat",), "bv": ("kv_flat",)}
+
     def __init__(self, cfg: ModelConfig, *, device: torch.device) -> None:
         super().__init__()
         H, Kh, D, M = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
@@ -58,9 +64,10 @@ def qkv_proj(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = apply_rope(q.reshape(B, S, H, D), positions, cfg.rope_theta)
-    k = apply_rope(k.reshape(B, S, Kh, D), positions, cfg.rope_theta)
-    return q, k, v.reshape(B, S, Kh, D)
+    q, k, v = (keep_grad_sharded(t) for t in (q, k, v))
+    q = apply_rope(split_last(q, H, D), positions, cfg.rope_theta)
+    k = apply_rope(split_last(k, Kh, D), positions, cfg.rope_theta)
+    return q, k, split_last(v, Kh, D)
 
 
 def attention_train(p: Attention, x: torch.Tensor, cfg: ModelConfig,
@@ -68,9 +75,11 @@ def attention_train(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Causal self-attention over the whole sequence; returns (y, k, v)."""
     q, k, v = qkv_proj(p, x, cfg, positions)
-    out = flash_attention_op(q, k, v, causal=True, window=cfg.window)
     B, S = x.shape[:2]
-    return out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ p.wo, k, v
+    out = on_local_shards(
+        lambda q, k, v: flash_attention_op(q, k, v, causal=True, window=cfg.window),
+        (q, k, v), ((0, 2),) * 3, ((0, 2),), batch=B, heads=(cfg.num_heads, cfg.num_kv_heads))
+    return flatten(out, 2, 3) @ p.wo, k, v
 
 
 # ---------------------------------------------------------------------------
@@ -86,10 +95,24 @@ class DecodePlan:
     lengths: torch.Tensor       # (B,) int32: tokens once this step's is written
     slot: torch.Tensor          # (B,) int32: flat token slot of this step's k/v
     live_blocks: int            # host: most descriptors a sequence needs
+    global_positions: Optional[torch.Tensor] = None   # a sharded pool: every sequence's
 
     @property
     def positions(self) -> torch.Tensor:
+        """(B, 1) positions of the step's tokens (RoPE)."""
+        if self.global_positions is not None:
+            return self.global_positions
         return (self.lengths - 1)[:, None]
+
+
+def _local_rows(cur_index: np.ndarray, shards: Optional[Shards], device
+                ) -> Tuple[np.ndarray, Optional[torch.Tensor]]:
+    """(this device's rows of the step's host positions, every sequence's
+    positions (B, 1) on the device when the cache is sharded, else None)."""
+    cur = np.asarray(cur_index, np.int64)
+    if shards is None:
+        return cur, None
+    return shards.rows(cur), torch.from_numpy(cur[:, None]).to(device)
 
 
 class PagedKVPool:
@@ -100,23 +123,32 @@ class PagedKVPool:
     allocated once, here, for block copies that read whole R-page blocks.
     Each sequence gets all ``ceil(max_len / T)`` of its pages in one
     ``alloc`` so its pages form contiguous runs and its blocks stay full.
+
+    With ``shards`` (a step on a mesh) the pool is this device's: its local
+    sequences' pages and its KV heads, every data shard the same program.
     """
 
     def __init__(self, cfg: ModelConfig, batch: int, max_len: int, *,
                  page_tokens: int = 16, pages_per_block: int = 4,
-                 device: torch.device, dtype: torch.dtype = torch.bfloat16) -> None:
+                 device: torch.device, dtype: torch.dtype = torch.bfloat16,
+                 shards: Optional[Shards] = None) -> None:
         if cfg.window is not None:
             raise ValueError("the paged kernel has no window mask: a "
                              "sliding-window arch decodes over a RingKVCache")
         T, R = page_tokens, pages_per_block
         per_seq = -(-max_len // T)
+        self.shards = shards
+        if shards is not None:
+            batch = shards.local_batch
+        kv_heads = (cfg.num_kv_heads if shards is None
+                    else shards.local_heads(cfg.num_heads, cfg.num_kv_heads)[1])
         self.page_tokens, self.pages_per_block = T, R
         self.allocator = PageAllocator(batch * per_seq)
         self.page_table = np.array([self.allocator.alloc(per_seq)
                                     for _ in range(batch)], np.int32)
         self.pool = torch.zeros(
             (cfg.num_layers, self.allocator.num_pages + R - 1, T, 2,
-             cfg.num_kv_heads, cfg.head_dim), dtype=dtype, device=device)
+             kv_heads, cfg.head_dim), dtype=dtype, device=device)
 
     @property
     def capacity(self) -> int:
@@ -138,7 +170,10 @@ class PagedKVPool:
         flat[slots] = torch.stack([k, v], dim=2).to(flat.dtype)
 
     def prompt_plan(self, batch: int, length: int) -> torch.Tensor:
-        """The prompt's token slots (B, S) on the device, once for every layer."""
+        """The prompt's token slots (B, S) on the device, once for every layer
+        (the pool's own sequences when it is sharded)."""
+        if self.shards is not None:
+            batch = self.page_table.shape[0]
         pos = np.broadcast_to(np.arange(length), (batch, length))
         return torch.from_numpy(self.token_slots(pos).astype(np.int32)).to(self.pool.device)
 
@@ -152,7 +187,7 @@ class PagedKVPool:
         pages from the start, so early in decode its last descriptors hold
         no live token: ``live_blocks`` counts only those that do.
         """
-        cur = np.asarray(cur_index, np.int64)
+        cur, positions = _local_rows(cur_index, self.shards, self.pool.device)
         starts, valid = plan_blocks(self.page_table, self.pages_per_block)
         packed = np.concatenate([starts.ravel(), valid.ravel(), cur + 1,
                                  self.token_slots(cur[:, None])[:, 0]])
@@ -161,7 +196,7 @@ class PagedKVPool:
         n = B * NB
         return DecodePlan(dev[:n].view(B, NB), dev[n:2 * n].view(B, NB),
                           dev[2 * n:2 * n + B], dev[2 * n + B:],
-                          count_live_blocks(valid, cur + 1, self.page_tokens))
+                          count_live_blocks(valid, cur + 1, self.page_tokens), positions)
 
     def attend(self, layer: int, plan: DecodePlan, q: torch.Tensor, k: torch.Tensor,
                v: torch.Tensor) -> torch.Tensor:
@@ -186,6 +221,7 @@ class SlotPlan:
     positions: torch.Tensor     # (B, 1): the step's token positions (RoPE)
     slot: torch.Tensor          # (B,): where the step's entry goes
     valid: torch.Tensor         # (B, length) bool: the slots the step attends to
+                                # (a sharded cache: its own sequences' slot and valid)
 
 
 class SlotCache:
@@ -208,8 +244,12 @@ class SlotCache:
 
     def __init__(self, num_layers: int, batch: int, length: int,
                  shapes: Sequence[Tuple[int, ...]], *,
-                 device: torch.device, dtype: torch.dtype = torch.bfloat16) -> None:
+                 device: torch.device, dtype: torch.dtype = torch.bfloat16,
+                 shards: Optional[Shards] = None) -> None:
         self.length = length
+        self.shards = shards
+        if shards is not None:
+            batch = shards.local_batch
         self.bufs = [torch.zeros((num_layers, batch, length, *shape), dtype=dtype,
                                  device=device) for shape in shapes]
 
@@ -235,13 +275,15 @@ class SlotCache:
 
     def plan_step(self, cur_index: np.ndarray) -> SlotPlan:
         """Slot and mask of the step at host positions ``cur_index`` (B,)."""
-        cur = np.asarray(cur_index, np.int64)
+        cur, positions = _local_rows(cur_index, self.shards, self.device)
         self._check(int(cur.max()))
         slot = cur % self.length
         age = (slot[:, None] - np.arange(self.length)[None, :]) % self.length
         valid = age < np.minimum(cur + 1, self.length)[:, None]
         dev = self.device
-        return SlotPlan(torch.from_numpy(cur[:, None]).to(dev), torch.from_numpy(slot).to(dev),
+        if positions is None:
+            positions = torch.from_numpy(cur[:, None]).to(dev)
+        return SlotPlan(positions, torch.from_numpy(slot).to(dev),
                         torch.from_numpy(valid).to(dev))
 
     def write_step(self, layer: int, plan: SlotPlan, *values: torch.Tensor) -> None:
@@ -257,10 +299,13 @@ class RingKVCache(SlotCache):
     ``init_kv_cache`` sizes them."""
 
     def __init__(self, cfg: ModelConfig, batch: int, max_len: int, *,
-                 device: torch.device, dtype: torch.dtype = torch.bfloat16) -> None:
-        shape = (cfg.num_kv_heads, cfg.head_dim)
+                 device: torch.device, dtype: torch.dtype = torch.bfloat16,
+                 shards: Optional[Shards] = None) -> None:
+        kv_heads = (cfg.num_kv_heads if shards is None
+                    else shards.local_heads(cfg.num_heads, cfg.num_kv_heads)[1])
+        shape = (kv_heads, cfg.head_dim)
         super().__init__(cfg.num_layers, batch, min(max_len, cfg.window), (shape, shape),
-                         device=device, dtype=dtype)
+                         device=device, dtype=dtype, shards=shards)
 
     def attend(self, layer: int, plan: SlotPlan, q: torch.Tensor, k: torch.Tensor,
                v: torch.Tensor) -> torch.Tensor:
@@ -284,5 +329,7 @@ def attention_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     with its ``DecodePlan``, or a ``RingKVCache`` with its ``SlotPlan``)."""
     B = x.shape[0]
     q, k, v = qkv_proj(p, x, cfg, plan.positions)
-    out = cache.attend(layer, plan, q[:, 0], k[:, 0], v[:, 0])
+    out = on_local_shards(lambda q, k, v: cache.attend(layer, plan, q, k, v),
+                          (q[:, 0], k[:, 0], v[:, 0]), ((0, 1),) * 3, ((0, 1),), batch=B,
+                          heads=(cfg.num_heads, cfg.num_kv_heads))
     return out.reshape(B, 1, cfg.num_heads * cfg.head_dim) @ p.wo

@@ -75,6 +75,8 @@ def swiglu(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
 
 
 class MLP(nn.Module):
+    AXES = {"wi": ("embed", "ffn"), "wg": ("embed", "ffn"), "wo": ("ffn", "embed")}
+
     def __init__(self, d_model: int, d_ff: int, *, device: torch.device) -> None:
         super().__init__()
         self.wi = weight(d_model, d_ff, device=device)

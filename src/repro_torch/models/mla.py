@@ -13,13 +13,15 @@ the reference and here (no Pallas kernel there).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import (Shards, flatten, keep_grad_sharded, on_local_shards,
+                                    split_last)
 from ..kernels.flash_attention.ops import flash_attention_op
 from .attention import NEG_INF, SlotCache, SlotPlan
 from .layers import apply_rope, rms_norm, weight
@@ -27,6 +29,9 @@ from .layers import apply_rope, rms_norm, weight
 
 class MLA(nn.Module):
     """The reference's ``init_mla`` leaves, under its names."""
+
+    AXES = {"wq": ("embed", "q_flat"), "wkv_a": ("embed", "lora"), "kv_norm": ("lora",),
+            "wk_b": ("lora", "q_flat"), "wv_b": ("lora", "q_flat"), "wo": ("q_flat", "embed")}
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device) -> None:
         super().__init__()
@@ -43,7 +48,7 @@ class MLA(nn.Module):
 def _mla_qkv(p: MLA, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     B, S, _ = x.shape
     H, R, dn = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_nope_dim
-    q = (x @ p.wq).reshape(B, S, H, dn + cfg.qk_rope_dim)
+    q = split_last(keep_grad_sharded(x @ p.wq), H, dn + cfg.qk_rope_dim)
     q_nope, q_pe = q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
     kv = x @ p.wkv_a
     c_kv = rms_norm(kv[..., :R], p.kv_norm, cfg.norm_eps)
@@ -57,14 +62,16 @@ def mla_train(p: MLA, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
     B, S, _ = x.shape
     H, dn, dr, dv = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     q_nope, q_pe, c_kv, k_pe = _mla_qkv(p, x, cfg, positions)
-    k_nope = (c_kv @ p.wk_b).reshape(B, S, H, dn)
-    v = (c_kv @ p.wv_b).reshape(B, S, H, dv)
+    k_nope = split_last(keep_grad_sharded(c_kv @ p.wk_b), H, dn)
+    v = split_last(keep_grad_sharded(c_kv @ p.wv_b), H, dv)
     q = torch.cat([q_nope, q_pe], dim=-1)
     k = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, H, dr)], dim=-1)
     # pad v's head dim up to the qk dim for the shared flash path, slice after
     v_p = F.pad(v, (0, dn + dr - dv))
-    out = flash_attention_op(q, k, v_p, causal=True)[..., :dv]
-    return out.reshape(B, S, H * dv) @ p.wo, c_kv, k_pe
+    out = on_local_shards(lambda q, k, v: flash_attention_op(q, k, v, causal=True),
+                          (q, k, v_p), ((0, 2),) * 3, ((0, 2),), batch=B,
+                          heads=(H,))[..., :dv]
+    return flatten(out, 2, 3) @ p.wo, c_kv, k_pe
 
 
 class LatentCache(SlotCache):
@@ -72,10 +79,11 @@ class LatentCache(SlotCache):
     dr), as the reference's ``init_mla_cache`` stacked on the layer axis."""
 
     def __init__(self, cfg: ModelConfig, batch: int, max_len: int, *,
-                 device: torch.device, dtype: torch.dtype = torch.bfloat16) -> None:
-        super().__init__(cfg.num_layers, batch, max_len,
-                         ((cfg.kv_lora_rank,), (cfg.qk_rope_dim,)),
-                         device=device, dtype=dtype)
+                 device: torch.device, dtype: torch.dtype = torch.bfloat16,
+                 shards: Optional[Shards] = None) -> None:
+        rank = cfg.kv_lora_rank if shards is None else shards.local_heads(cfg.kv_lora_rank)[0]
+        super().__init__(cfg.num_layers, batch, max_len, ((rank,), (cfg.qk_rope_dim,)),
+                         device=device, dtype=dtype, shards=shards)
 
     def _check(self, last: int) -> None:
         """Not a ring: a position past ``max_len`` raises."""
@@ -101,15 +109,21 @@ def mla_decode(p: MLA, x: torch.Tensor, cfg: ModelConfig, cache: LatentCache,
     H, R = cfg.num_heads, cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     q_nope, q_pe, c_new, kpe_new = _mla_qkv(p, x, cfg, plan.positions)
-    cache.write_step(layer, plan, c_new[:, 0], kpe_new[:, 0])
-    c_kv, k_pe = cache.c_kv[layer].float(), cache.k_pe[layer].float()
-    wk_b = p.wk_b.reshape(R, H, dn).float()
-    wv_b = p.wv_b.reshape(R, H, dv).float()
+    on_local_shards(lambda c, k: cache.write_step(layer, plan, c, k),
+                    (c_new[:, 0], kpe_new[:, 0]), ((0, 1), (0, None)), (), batch=B,
+                    heads=(R,))
+    c_kv, k_pe, valid = cache.c_kv[layer], cache.k_pe[layer], plan.valid
+    if cache.shards is not None:     # the cache's shards as DTensors: (B, S, R), (B, S, dr)
+        c_kv, k_pe, valid = (cache.shards.to_global(t, d, (R,)) for t, d in (
+            (c_kv, (0, 2)), (k_pe, (0, None)), (valid, (0, None))))
+    c_kv, k_pe = c_kv.float(), k_pe.float()
+    wk_b = split_last(p.wk_b, H, dn).float()
+    wv_b = split_last(p.wv_b, H, dv).float()
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), wk_b)    # absorb W_kb
     s = torch.einsum("bhr,bsr->bhs", q_lat, c_kv)
     s = s + torch.einsum("bhd,bsd->bhs", q_pe[:, 0].float(), k_pe)
     s = s * (dn + dr) ** -0.5
-    s = torch.where(plan.valid[:, None, :], s, NEG_INF)
+    s = torch.where(valid[:, None, :], s, NEG_INF)
     o_lat = torch.einsum("bhs,bsr->bhr", torch.softmax(s, dim=-1), c_kv)
     out = torch.einsum("bhr,rhd->bhd", o_lat, wv_b)
     return out.reshape(B, 1, H * dv).to(x.dtype) @ p.wo

@@ -22,7 +22,11 @@ mesh) becomes this single-device dispatch: ``cfg.moe_shard_map`` is a
 config field the port keeps so configs compare equal, and ignores. The
 expert products are plain batched products in the reference too, outside
 any Pallas kernel, so here they stay torch products. Every step stays on
-the device: no host sync.
+the device: no host sync. In a step on a mesh (DTensors) the layer's
+tokens are replicated onto every device first, so the routing, and with it
+the sort, slots and aux counts (plain tensors), is the global one, as the
+reference's default dispatch is; the expert products split as the expert
+weights are sharded.
 """
 
 from __future__ import annotations
@@ -34,12 +38,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import flatten, is_dtensor, reshape_replicated, split_rows
 from .layers import swiglu, weight
 
 
 class MoE(nn.Module):
     """The reference's ``init_moe`` leaves, under its names: ``router`` (f32),
     ``wi``/``wg`` (E, M, F), ``wo`` (E, F, M) and the ``shared_*`` SwiGLU."""
+
+    AXES = {"router": ("embed", None), "wi": ("experts", "embed", "moe_ff"),
+            "wg": ("experts", "embed", "moe_ff"), "wo": ("experts", "moe_ff", "embed"),
+            "shared_wi": ("embed", "ffn"), "shared_wg": ("embed", "ffn"),
+            "shared_wo": ("ffn", "embed")}
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device) -> None:
         super().__init__()
@@ -142,6 +152,8 @@ def _dispatch(xt: torch.Tensor, p: MoE, cfg: ModelConfig
     probs = torch.softmax(xt.float() @ p.router.float(), dim=-1)     # (T, E)
     gate, expert_idx = torch.topk(probs, K, dim=-1)                   # (T, K)
     gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
+    if is_dtensor(expert_idx):     # replicated: the routing is the same on every device
+        expert_idx = expert_idx.to_local()
 
     # load-balancing aux loss (Switch-style)
     flat_e = expert_idx.reshape(-1)                                   # (T·K,)
@@ -152,15 +164,13 @@ def _dispatch(xt: torch.Tensor, p: MoE, cfg: ModelConfig
     C = capacity(T, cfg)
     order, valid, slot, src, occupied, slot_map = _slots(expert_idx, E, C)
 
-    grouped = _Dispatch.apply(xt, src, occupied, slot_map).view(E, C, M)
+    grouped = split_rows(_Dispatch.apply(xt, src, occupied, slot_map), E, C)  # (E, C, M)
     h = torch.bmm(grouped, p.wi)
     g = torch.bmm(grouped, p.wg)
-    yg = torch.bmm(h * F.silu(g), p.wo).view(E * C, M)
+    yg = flatten(torch.bmm(h * F.silu(g), p.wo), 0, 1)                # (E·C, M)
 
     w_slot = torch.where(valid, gate.reshape(-1)[order], 0.0)
-    w_of_slot = torch.zeros(E * C + 1, device=dev)
-    w_of_slot[slot] = w_slot
-    w_of_slot = w_of_slot[:-1]
+    w_of_slot = torch.zeros(E * C + 1, device=dev).index_put((slot,), w_slot)[:-1]
     y = _Combine.apply(yg.float() * w_of_slot[:, None] * occupied[:, None], slot_map, src,
                        occupied)
     return y, aux
@@ -170,8 +180,8 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, M) → (out in x's dtype, aux loss f32 scalar)."""
     B, S, M = x.shape
-    xt = x.reshape(B * S, M)
+    xt = reshape_replicated(x, B * S, M)     # a step on a mesh: every token on every device
     y, aux = _dispatch(xt, p, cfg)
     if cfg.num_shared_experts:
         y = y + swiglu(xt, p.shared_wi, p.shared_wg, p.shared_wo).float()
-    return y.reshape(B, S, M).to(x.dtype), aux
+    return reshape_replicated(y, B, S, M).to(x.dtype), aux

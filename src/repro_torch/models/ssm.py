@@ -14,13 +14,15 @@ scan in f32, the decode conv and state in f32, ``y`` cast to bf16 before
 
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import (Shards, flatten, keep_grad_sharded, on_local_shards,
+                                    split_last)
 from ..kernels.ssd_scan.ops import ssd_scan_op
 from .layers import weight
 
@@ -29,6 +31,11 @@ CONV_W = 4  # depthwise conv width
 
 class SSM(nn.Module):
     """The ten leaves of the reference's ``init_ssm``, under its names."""
+
+    AXES = {"w_z": ("embed", "ssm_inner"), "w_xbc": ("embed", "ssm_inner"),
+            "w_dt": ("embed", None), "conv_w": (None, "ssm_inner"),
+            "conv_b": ("ssm_inner",), "A_log": (None,), "D": (None,), "dt_bias": (None,),
+            "norm_w": ("ssm_inner",), "w_out": ("ssm_inner", "embed")}
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device) -> None:
         super().__init__()
@@ -74,18 +81,21 @@ def ssm_train(p: SSM, x: torch.Tensor, cfg: ModelConfig,
     if L % K:
         raise ValueError("seq_len must be a multiple of ssm_chunk")
 
-    z = x @ p.w_z
-    xBC_raw = x @ p.w_xbc
+    z = keep_grad_sharded(x @ p.w_z)
+    xBC_raw = keep_grad_sharded(x @ p.w_xbc)
     xBC = _conv_scan(xBC_raw, p.conv_w, p.conv_b, L)
     dt = F.softplus((x @ p.w_dt).float() + p.dt_bias.float())          # (B, L, H)
     A = -torch.exp(p.A_log.float())                                     # (H,)
 
-    xs = xBC[..., :Din].reshape(B, L, H, P).float().contiguous()
+    xs = split_last(xBC[..., :Din], H, P).float().contiguous()
     Bm = xBC[..., Din:Din + N].float().contiguous()                     # (B, L, N)
     Cm = xBC[..., Din + N:].float().contiguous()
-    y, h_final = ssd_scan_op(xs, Bm, Cm, dt, A, chunk=K, return_state=True)
+    y, h_final = on_local_shards(
+        lambda *a: ssd_scan_op(*a, chunk=K, return_state=True), (xs, Bm, Cm, dt, A),
+        ((0, 2), (0, None), (0, None), (0, 2), (None, 0)), ((0, 2), (0, 1)), batch=B,
+        heads=(H,))
     y = y + xs * p.D.float()[None, None, :, None]
-    y = _gated_norm(y.reshape(B, L, Din), z, p.norm_w, cfg.norm_eps)
+    y = _gated_norm(flatten(y, 2, 3), z, p.norm_w, cfg.norm_eps)
     out = y.to(x.dtype) @ p.w_out
     if not return_state:
         return out
@@ -101,19 +111,51 @@ def ssm_train(p: SSM, x: torch.Tensor, cfg: ModelConfig,
 class SSMCache:
     """Every layer's decode state: ``conv`` (L, B, CONV_W − 1, conv_ch) and
     ``h`` (L, B, H, N, P), both f32, as the reference's ``init_ssm_cache``
-    stacked on the layer axis. Prefill fills it; decode updates it in place."""
+    stacked on the layer axis. Prefill fills it; decode updates it in place.
 
-    def __init__(self, cfg: ModelConfig, batch: int, *, device: torch.device) -> None:
+    With ``shards`` (a step on a mesh) it holds this device's shards: its
+    sequences, and ``conv_ch`` and the heads split over "model" where they
+    divide (the reference's "ssm_inner" and "ssm_heads"); ``read`` gives a
+    layer's state as DTensors and ``write`` takes DTensors."""
+
+    def __init__(self, cfg: ModelConfig, batch: int, *, device: torch.device,
+                 shards: Optional[Shards] = None) -> None:
         H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-        conv_ch = H * P + 2 * N
+        self.shards, self.heads = shards, {"conv": (H * P + 2 * N,), "h": (H,)}
+        conv_ch, heads = self.heads["conv"][0], H
+        if shards is not None:
+            batch = shards.local_batch
+            conv_ch, heads = shards.local_heads(conv_ch)[0], shards.local_heads(H)[0]
         self.conv = torch.zeros((cfg.num_layers, batch, CONV_W - 1, conv_ch),
                                 dtype=torch.float32, device=device)
-        self.h = torch.zeros((cfg.num_layers, batch, H, N, P), dtype=torch.float32,
+        self.h = torch.zeros((cfg.num_layers, batch, heads, N, P), dtype=torch.float32,
                              device=device)
 
+    DIMS = {"conv": (0, 2), "h": (0, 1)}      # (batch dim, split dim) of a layer's state
+
+    def read(self, layer: int) -> Dict[str, torch.Tensor]:
+        state = {"conv": self.conv[layer], "h": self.h[layer]}
+        if self.shards is None:
+            return state
+        return {k: self.shards.to_global(t, self.DIMS[k], self.heads[k])
+                for k, t in state.items()}
+
     def write(self, layer: int, state: Dict[str, torch.Tensor]) -> None:
+        if self.shards is not None:
+            state = {k: self.shards.to_local(t, self.DIMS[k], self.heads[k])
+                     for k, t in state.items()}
         self.conv[layer] = state["conv"]
         self.h[layer] = state["h"]
+
+
+def _state_step(h: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                Cm: torch.Tensor, xs: torch.Tensor, D: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One token of the recurrence, each (b, h) on its own: (y (B, H, P),
+    the new state (B, H, N, P))."""
+    decay = torch.exp(dt * A)
+    h = h * decay[:, :, None, None] + torch.einsum("bh,bn,bhp->bhnp", dt, Bm, xs)
+    return torch.einsum("bn,bhnp->bhp", Cm, h) + xs * D[None, :, None], h
 
 
 def ssm_decode(p: SSM, x: torch.Tensor, cache: SSMCache, layer: int,
@@ -126,19 +168,20 @@ def ssm_decode(p: SSM, x: torch.Tensor, cache: SSMCache, layer: int,
     z = x0 @ p.w_z
     xBC = x0 @ p.w_xbc
     dt_in = x0 @ p.w_dt
-    hist = torch.cat([cache.conv[layer], xBC[:, None, :].float()], dim=1)  # (B, W, C)
+    state = cache.read(layer)
+    hist = torch.cat([state["conv"], xBC[:, None, :].float()], dim=1)      # (B, W, C)
     conv = torch.einsum("bwc,wc->bc", hist, p.conv_w.float())
     xBC_c = F.silu(conv + p.conv_b.float())
-    xs = xBC_c[..., :Din].reshape(B, H, P)
+    xs = split_last(xBC_c[..., :Din], H, P)
     Bm = xBC_c[..., Din:Din + N]
     Cm = xBC_c[..., Din + N:]
 
     dt = F.softplus(dt_in.float() + p.dt_bias.float())                 # (B, H)
     A = -torch.exp(p.A_log.float())
-    decay = torch.exp(dt * A)
-    h = cache.h[layer] * decay[:, :, None, None] + torch.einsum(
-        "bh,bn,bhp->bhnp", dt, Bm, xs)
-    y = torch.einsum("bn,bhnp->bhp", Cm, h) + xs * p.D.float()[None, :, None]
+    y, h = on_local_shards(
+        _state_step, (state["h"], dt, A, Bm, Cm, xs, p.D.float()),
+        ((0, 1), (0, 1), (None, 0), (0, None), (0, None), (0, 1), (None, 0)),
+        ((0, 1), (0, 1)), batch=B, heads=(H,))
     y = _gated_norm(y.reshape(B, Din), z, p.norm_w, cfg.norm_eps)
     out = y.to(x.dtype) @ p.w_out
     cache.write(layer, {"conv": hist[:, 1:], "h": h})

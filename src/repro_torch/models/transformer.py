@@ -38,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
+from ..distributed.sharding import Shards, is_dtensor, on_local_shards, settle
 from .attention import (Attention, PagedKVPool, RingKVCache, attention_decode,
                         attention_train)
 from .layers import MLP, init_weights, rms_norm, weight
@@ -70,7 +71,14 @@ def _parts(cache: Optional[Cache]) -> Tuple[Optional[KVCache], Optional[SSMCache
 
 
 class Block(nn.Module):
-    """Pre-norm mixer + pre-norm FFN, with the reference's leaf names."""
+    """Pre-norm mixer + pre-norm FFN, with the reference's leaf names.
+
+    On a mesh the residual stream stays whole over "model": the partial sums
+    of the mixer's and the FFN's output products (their inputs sharded on
+    the contracted dim) are reduced where they join it (``settle``), or the
+    next column-sharded product would gather its weight instead."""
+
+    AXES = {"norm_mixer": ("embed",), "norm_ffn": ("embed",)}
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device) -> None:
         super().__init__()
@@ -97,20 +105,25 @@ class Block(nn.Module):
         """The mixer over a whole sequence; stores its decode state in the caches given."""
         cfg = self.cfg
         a = s = None
+        B = h.shape[0]
         if self.attn is not None:
             a, k, v = attention_train(self.attn, h, cfg, positions)
             if kv is not None:
-                kv.write_prompt(layer, kv_plan, k, v)
+                on_local_shards(lambda k, v: kv.write_prompt(layer, kv_plan, k, v), (k, v),
+                                ((0, 2), (0, 2)), (), batch=B,
+                                heads=(cfg.num_heads, cfg.num_kv_heads))
         elif self.mla is not None:
             a, c_kv, k_pe = mla_train(self.mla, h, cfg, positions)
             if kv is not None:
-                kv.write_prompt(layer, kv_plan, c_kv, k_pe)
+                on_local_shards(lambda c, k: kv.write_prompt(layer, kv_plan, c, k),
+                                (c_kv, k_pe), ((0, 2), (0, None)), (), batch=B,
+                                heads=(cfg.kv_lora_rank,))
         if self.ssm is not None:
             s = ssm_train(self.ssm, h, cfg, return_state=ssm is not None)
             if ssm is not None:
                 s, state = s
                 ssm.write(layer, state)
-        return self._mix(a, s)
+        return settle(self._mix(a, s))
 
     def mix_step(self, h: torch.Tensor, layer: int, kv: Optional[KVCache], plan,
                  ssm: Optional[SSMCache]) -> torch.Tensor:
@@ -123,7 +136,7 @@ class Block(nn.Module):
             a = mla_decode(self.mla, h, cfg, kv, layer, plan)
         if self.ssm is not None:
             s = ssm_decode(self.ssm, h, ssm, layer, cfg)
-        return self._mix(a, s)
+        return settle(self._mix(a, s))
 
     def ffn(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(x + FFN(norm(x)), the MoE's aux loss or None). Prefill and decode
@@ -134,7 +147,7 @@ class Block(nn.Module):
             return x + y, aux
         if self.mlp is None:                     # d_ff = 0: the FFN half adds zero
             return x, None
-        return x + self.mlp(rms_norm(x, self.norm_ffn, self.cfg.norm_eps)), None
+        return x + settle(self.mlp(rms_norm(x, self.norm_ffn, self.cfg.norm_eps))), None
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, layer: int,
                 kv: Optional[KVCache], kv_plan, ssm: Optional[SSMCache]
@@ -146,6 +159,9 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
+    AXES = {"embed": ("vocab", "embed"), "final_norm": ("embed",),
+            "unembed": ("embed", "vocab")}
+
     def __init__(self, cfg: ModelConfig, *, device: str | torch.device = "cuda"
                  ) -> None:
         super().__init__()
@@ -153,7 +169,7 @@ class Transformer(nn.Module):
                 "gqa", "mla", "none"):
             raise ValueError(f"{cfg.name}: no block for mixer {cfg.mixer!r} with "
                              f"attention {cfg.attention!r}")
-        device = resolve_device(device)
+        device = resolve_device(device, allow_meta=True)
         self.cfg = cfg
         self.embed = weight(cfg.padded_vocab, cfg.d_model, device=device)
         self.blocks = nn.ModuleList(Block(cfg, device=device)
@@ -172,7 +188,7 @@ class Transformer(nn.Module):
         ``F.embedding``, whose gradient on the card sums each row's tokens in
         a fixed order (no atomics), so training is reproducible."""
         if tokens_or_embeds.ndim == token_ndim:
-            return F.embedding(tokens_or_embeds, self.embed)
+            return settle(F.embedding(tokens_or_embeds, self.embed))
         return tokens_or_embeds.to(self.embed.dtype)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -224,19 +240,27 @@ class Transformer(nn.Module):
 
         K/V and latent entries are kept in the weights' dtype (bf16, the
         reference's cache dtype, unless the model was cast); the SSM state in f32.
+
+        When the parameters are DTensors (a step on a mesh, ``launch.steps``),
+        the cache holds only this device's shards as plain tensors
+        (``Shards``): this rank's sequences of ``batch`` and the head axes split
+        over "model" as the attention splits them.
         """
         cfg, dev, dtype = self.cfg, self.device, self.embed.dtype
+        shards = (Shards(self.embed.device_mesh, batch) if is_dtensor(self.embed)
+                  else None)
+        kw = dict(device=dev, dtype=dtype, shards=shards)
         kv = None
         if cfg.uses_attention and cfg.attention == "mla":
-            kv = LatentCache(cfg, batch, max_len, device=dev, dtype=dtype)
+            kv = LatentCache(cfg, batch, max_len, **kw)
         elif cfg.uses_attention and cfg.window is not None:
-            kv = RingKVCache(cfg, batch, max_len, device=dev, dtype=dtype)
+            kv = RingKVCache(cfg, batch, max_len, **kw)
         elif cfg.uses_attention:
             kv = PagedKVPool(cfg, batch, max_len, page_tokens=page_tokens,
-                             pages_per_block=pages_per_block, device=dev, dtype=dtype)
+                             pages_per_block=pages_per_block, **kw)
         if not cfg.uses_ssm:
             return kv
-        ssm = SSMCache(cfg, batch, device=dev)
+        ssm = SSMCache(cfg, batch, device=dev, shards=shards)
         return ssm if kv is None else HybridCache(kv, ssm)
 
     def prefill(self, tokens_or_embeds: torch.Tensor, cache: Cache) -> torch.Tensor:
@@ -257,6 +281,56 @@ class Transformer(nn.Module):
         return self._logits(x)[:, 0]
 
 
+def logical_axes(model: nn.Module) -> Dict[str, Tuple[Optional[str], ...]]:
+    """{parameter name: its logical axis names}, from the ``AXES`` table of
+    the module that owns it: the reference's spec tree (``SpecTree``), where
+    a block's leaf ``blocks.{l}.<path>`` drops the reference's leading
+    "layers" axis (its leaves are stacked over layers, the port's are not)."""
+    out = {}
+    for name, p in model.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        axes = type(model.get_submodule(owner)).AXES[leaf]
+        if len(axes) != p.ndim:
+            raise AssertionError(f"{name}: axes {axes} vs shape {tuple(p.shape)}")
+        out[name] = axes
+    return out
+
+
+def cache_specs(cfg: ModelConfig) -> Dict:
+    """The reference's logical-axis tree of its decode cache (``init_cache``'s
+    structure; its ``cache_specs``). The port's caches name their own tensors'
+    axes after these (``cache_axes``)."""
+    specs: Dict = {}
+    if cfg.uses_attention:
+        if cfg.attention == "mla":
+            specs["mla"] = {"c_kv": ("layers", "batch", "kv_seq", "kv_lora"),
+                            "k_pe": ("layers", "batch", "kv_seq", None)}
+        else:
+            specs["attn"] = {"k": ("layers", "batch", "kv_seq", "kv_flat"),
+                             "v": ("layers", "batch", "kv_seq", "kv_flat")}
+    if cfg.uses_ssm:
+        specs["ssm"] = {"conv": ("layers", "batch", None, "ssm_inner"),
+                        "h": ("layers", "batch", "ssm_heads", None, None)}
+    return specs
+
+
+def cache_tensors(cache: Cache) -> Dict[str, torch.Tensor]:
+    """Every tensor of a decode cache by name (``cache_specs``'s keys where
+    the layout is the reference's: ``attn/k``, ``mla/c_kv``, ``ssm/h``; the
+    paged pool is ``attn/pool``)."""
+    kv, ssm = _parts(cache)
+    out = {}
+    if isinstance(kv, PagedKVPool):
+        out["attn/pool"] = kv.pool
+    elif isinstance(kv, LatentCache):
+        out.update({"mla/c_kv": kv.c_kv, "mla/k_pe": kv.k_pe})
+    elif kv is not None:
+        out.update({"attn/k": kv.bufs[0], "attn/v": kv.bufs[1]})
+    if ssm is not None:
+        out.update({"ssm/conv": ssm.conv, "ssm/h": ssm.h})
+    return out
+
+
 def loss_fn(model: Transformer, tokens: torch.Tensor, targets: torch.Tensor, *,
             remat: str = "none") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The reference's ``loss_fn``: (nll + aux, {"nll", "aux"}).
@@ -272,7 +346,7 @@ def loss_fn(model: Transformer, tokens: torch.Tensor, targets: torch.Tensor, *,
         pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
         logits = torch.where(pad, -1e30, logits)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, targets.clamp(min=0)[..., None])[..., 0]
+    gold = settle(logits.gather(-1, targets.clamp(min=0)[..., None]))[..., 0]
     mask = (targets >= 0).float()
     nll = ((logz - gold) * mask).sum() / mask.sum().clamp(min=1.0)
     return nll + aux, {"nll": nll, "aux": aux}

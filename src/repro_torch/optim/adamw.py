@@ -7,8 +7,11 @@ feedback residual) are f32 dicts keyed by parameter name
 ``torch.no_grad()`` and writes the result back into the parameter in its
 own dtype, in place; it returns a new ``OptState`` whose m and v are new
 tensors, so a state handed to an asynchronous reader (the offload of
-``m`` in ``launch.train``) is never written again. The reference's ZeRO
-sharding of the moments waits for the mesh (ROADMAP.md §1, item 11).
+``m`` in ``launch.train``) is never written again. ``init(..., shardings=,
+mesh=)`` places the moments on a mesh as DTensors, as the reference's
+ZeRO-1 ``optim_rules`` shard them ("embed" over "data");
+``launch.steps`` unwraps them to this device's shards for a model of plain
+tensors, and the dry run updates them as DTensors.
 
 Weight decay goes on tensors of ``ndim >= 2``, the reference's "matrices
 only". The reference stacks its block parameters on a leading layer axis,
@@ -25,6 +28,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..configs.base import RunConfig
+from ..distributed.sharding import distribute
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -44,12 +48,27 @@ def lr_schedule(step: int, run: RunConfig) -> float:
     return run.learning_rate * warm * (0.1 + 0.9 * cos)
 
 
-def init(params: Tensors, run: RunConfig) -> OptState:
+def init(params: Tensors, run: RunConfig, *, shardings: Optional[Dict[str, tuple]] = None,
+         mesh=None) -> OptState:
+    """Zero moments (and residual) in f32; with ``shardings`` ({name:
+    placements}) each a DTensor on ``mesh`` with those placements."""
     def zeros() -> Tensors:
-        return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for n, p in params.items()}
+        out = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for n, p in params.items()}
+        if shardings is None:
+            return out
+        return {n: distribute(t, mesh, shardings[n]) for n, t in out.items()}
     return OptState(step=torch.zeros((), dtype=torch.int32), m=zeros(), v=zeros(),
                     err=zeros() if run.grad_compression else None)
+
+
+def local_state(state: OptState) -> OptState:
+    """The state with every DTensor moment replaced by this device's shard."""
+    def loc(tree: Optional[Tensors]) -> Optional[Tensors]:
+        if tree is None:
+            return None
+        return {n: t.to_local() if hasattr(t, "to_local") else t for n, t in tree.items()}
+    return OptState(state.step, loc(state.m), loc(state.v), loc(state.err))
 
 
 @torch.no_grad()

@@ -12,9 +12,9 @@ losses within 1e-2 relative at every step and within 1e-3 at the first
 resume.
 
 Not twinned here: test_spec_divisibility_fallback, test_optim_rules_shard_embed
-and test_arch_overrides_apply (the sharding rules wait for the mesh,
-ROADMAP.md §1 item 11), and test_hlo_analyzer_loop_flops_exact (XLA's HLO
-has no torch counterpart).
+and test_arch_overrides_apply (their twins are in tests/test_torch_sharding.py),
+and test_hlo_analyzer_loop_flops_exact (XLA's HLO has no torch counterpart;
+tests/test_torch_roofline.py holds the port's counter instead).
 """
 
 import re
@@ -145,7 +145,13 @@ def test_train_entry_points_run_and_resume(entry, tmp_path, capsys):
     assert out.rstrip().endswith("TRAINING DONE")
 
 
-def test_train_refuses_a_mesh(capsys):
-    with pytest.raises(SystemExit):
+def test_train_refuses_a_mesh(capsys, tmp_path):
+    """One process is one rank: a mesh past 1 × 1 fails in make_local_mesh,
+    naming the devices this process sees."""
+    with pytest.raises(ValueError, match=r"needs 2 devices.*sees 1 cpu device"):
         train.main(["--reduced", "--device", "cpu", "--data", "2"])
-    assert "item 11" in capsys.readouterr().err
+    out = train.main(["--reduced", "--device", "cpu", "--data", "1", "--model", "1",
+                      "--steps", "1", "--ckpt-every", "10", "--ckpt-dir", str(tmp_path),
+                      "--log-every", "1"])
+    assert "mesh={'data': 1, 'model': 1}" in capsys.readouterr().out
+    assert np.isfinite(out.losses).all()
