@@ -26,11 +26,14 @@ Phases, each printing one JSON line:
    card, at the reference suite's shapes and at the serving shapes (flash
    attention also at a causal prompt of 4096 tokens, at deepseek's prefill at
    head dim 192 and at hymba's, GQA 25/5 with a 1024-token window; paged
-   attention also at qwen2-moe's decode, D 128, at its edge cases and at 8192
-   tokens of context; the scan also at hymba's prefill, 50 heads, N 16); the
-   flash backward and the forward's LSE at the reference suite's shapes, the
-   training shape, qwen1.5-0.5b's heads, hymba's window and deepseek's D 192,
-   in f32 and bf16, the backward run twice and held to equal bits; the scan's
+   attention also at qwen2-moe's and qwen2.5-32b's decode, D 128, at its edge
+   cases (GQA groups 1, 2, 5, 7 and 8) and at 8192 tokens of context; the scan
+   also at hymba's prefill, 50 heads, N 16); the flash backward and the
+   forward's LSE at the reference suite's shapes, the training shape,
+   qwen1.5-0.5b's heads, hymba's window, deepseek's D 192, and at S 512 and D
+   128 qwen2-moe-a2.7b's heads and the GQA groups 5, 7 and 8 of qwen2.5-32b,
+   llava-next-34b and command-r-35b, in f32 and bf16, the backward run twice
+   and held to equal bits; the scan's
    training forward (cs summed in f64; y, h_final and the chunk-entry states
    against the plain version's) and its backward at the reference suite's scan
    shapes, ragged tiles and the training shapes of mamba2-780m and hymba-1.5b,
@@ -57,55 +60,72 @@ Phases, each printing one JSON line:
    ``kv_store``; paged attention over it, every sequence spilled to 3 donors
    and fetched back, paged attention again; spill and fetch rates beside one
    plain ``copy_`` of the same bytes to pinned memory and back;
-13. serve_archs: ``serve.main`` at full width for the other archs that fit one
-   card (rdmabox-paper-100m, musicgen-large with embedding inputs,
+13. serve_archs: ``serve.main`` at full width and depth for every other arch
+   of the registry (rdmabox-paper-100m, musicgen-large with embedding inputs,
    qwen2-moe-a2.7b, hymba-1.5b with a prompt of 1280 past its 1024-token
-   window, deepseek-v2-lite-16b through flash at D 192), each kernel's
-   launches reset just before and held to the arch's count just after; the
-   32-35 B dense archs and llava-next-34b (65-70 GB of bf16 weights) are not
-   served on the card;
-14. hybrid_decode: hymba at full width, prefill of 1280, 256 decode steps across
+   window, deepseek-v2-lite-16b through flash at D 192, and command-r-35b,
+   qwen1.5-32b, qwen2.5-32b and llava-next-34b (embedding inputs): 64.8-70.4
+   GB of bf16 weights beside init_weights' one f32 draw, ``serve_bytes``),
+   B 4, prompt 64, 32 steps, each kernel's launches reset just before and
+   held to the arch's count just after; peak memory beside the reckoning;
+14. dense_decode: the four 32-35 B archs at full width, depth cut to 2
+   layers, prefill of 64 and 32 decode steps against one forward (paged
+   attention at GQA groups 8, 1, 5 and 7, D 128), held in f32 as hymba is;
+15. hybrid_decode: hymba at full width, prefill of 1280, 256 decode steps across
    the ring's wrap, against one forward; held in f32, beside it bf16 through
    the kernels and bf16 with flash and the scan swapped for their plain
    versions, and each bf16 forward against the f32 one;
-15. mla_decode: deepseek at full width with every expert routed, prefill of 32
+16. mla_decode: deepseek at full width with every expert routed, prefill of 32
    tokens and 32 absorbed decode steps against one forward; held and witnessed
    as hymba is;
-16. train: ``repro_torch.launch.train.main`` at full width (rdmabox-paper-100m,
+17. train: ``repro_torch.launch.train.main`` at full width (rdmabox-paper-100m,
    batch 8, sequence 512, 30 steps, --offload of the first moment through the
    engine), launches reset just before and held to 12 flash forwards and 12
    flash backwards a step just after, the loss finite at every step and the
    mean of the last 5 below the first 5's by 0.1; step seconds, train tok/s,
    peak device memory; then 2 steps with --remat full (24 forwards a step);
-17. train_ssm: ``launch.train.main`` at full width and depth on mamba2-780m
+18. train_ssm: ``launch.train.main`` at full width and depth on mamba2-780m
    (batch 8, sequence 512 = two scan chunks, 30 steps), launches held to 48
    scan forwards and 48 scan backwards a step and nothing else, the loss
    finite and falling by 0.1 as in ``train``; step seconds, train tok/s, peak
    device memory and a profile with the scan backward's device ms a step;
-18. train_grads: one step of rdmabox-paper-100m (B 8), qwen1.5-0.5b, mamba2-780m
-   and hymba-1.5b (B 4) at full width, every parameter's gradient through the
-   kernels against the gradient with flash's and the scan's plain versions
-   swapped in on the card: held on an f32 copy (finite, nonzero, relative norm
-   error ≤ 1e-4), printed in bf16, each arch's launches held;
-19. moe_repeat: qwen2-moe-a2.7b at full width, depth cut to 2 of 24 layers,
+19. train_archs: 30 steps of ``launch.steps.build_train_step`` at S 512, real
+   top-k routing, no checkpoint: qwen2-moe-a2.7b and deepseek-v2-lite-16b at
+   4 layers, musicgen-large at full depth on codebook embeddings
+   (``frontend_embeds``), B 4; the loss finite at every step and falling by
+   0.1, one flash forward and backward an attention layer a step; step
+   seconds, train tok/s, peak memory;
+20. train_grads: one step at full width, S 512, of every arch: rdmabox-paper-100m
+   (B 8), qwen1.5-0.5b, mamba2-780m, hymba-1.5b, musicgen-large (embedding
+   inputs, its untied embed unreached) at full depth, and qwen2-moe-a2.7b,
+   deepseek-v2-lite-16b (B 4), llava-next-34b (embedding inputs),
+   command-r-35b, qwen1.5-32b and qwen2.5-32b (B 2) at 2 layers; every
+   parameter's gradient through the kernels against the gradient with flash's
+   and the scan's plain versions swapped in on the card: held on an f32 copy
+   (finite, nonzero, relative norm error ≤ 1e-4; a MoE arch routes every
+   token to every expert there, command-r-35b's kernel gradients wait in host
+   memory), printed in bf16 (held finite; real top-k), each arch's launches
+   held;
+21. moe_repeat: qwen2-moe-a2.7b at full width, depth cut to 2 of 24 layers,
    B 4, S 512: two forwards and backwards of the loss, the loss and every
    gradient equal in every bit (the MoE combine sums in a fixed order);
-20. train_resume: rdmabox-paper-100m's width at 2 layers, 6 straight steps
+22. train_resume: rdmabox-paper-100m's width at 2 layers, 6 straight steps
    against 3 + a checkpoint restore + 3, every parameter and moment equal;
-21. kernels: each kernel's time at the serving shapes (CUDA-graph replay, so no
+23. kernels: each kernel's time at the serving shapes (CUDA-graph replay, so no
    host gaps), its plain version's, the bound of the card, and a library call's;
    flash attention also at a causal prompt of 4096 tokens (D 64 and D 192), at
    deepseek's and hymba's prefill and at the training shape (with the LSE), the
    flash backward at the training shape, at qwen1.5-0.5b's heads (train_grads'
-   shape) and at head dim 192 (library: SDPA's backward), paged
-   attention also at qwen2-moe's decode and at 8192 tokens of context (planned
+   shape), at head dim 192 and at qwen2-moe-a2.7b's training shape (D 128;
+   library: SDPA's backward), paged attention also at qwen2-moe's and
+   qwen2.5-32b's (G 5) decode and at 8192 tokens of context (planned
    at R = 4 and R = 1) and at several split counts, the scan also at hymba's
    prefill, the scan's training forward (y in f32 on the CUDA cores, the
    state sweep on the FP64 tensor cores) and backward (FP64 tensor cores)
    at mamba2-780m's training shape (B 8, S 512), the backward also at
    hymba-1.5b's N 16 (B 4); the scan's training rows give the bound at 3×TF32
    and at the FP64 tensor cores they run;
-22. steps: ``launch.steps``' step builders on a real 1×1 ``DeviceMesh``
+24. steps: ``launch.steps``' step builders on a real 1×1 ``DeviceMesh``
    (``make_local_mesh``, nccl) at full width, random weights from seed 0,
    the reference's dry-run shapes cut to one card (``STEP_RUNS``):
    qwen1.5-0.5b ``prefill_32k`` (flash) and ``decode_32k`` over a 32768-token
@@ -230,9 +250,23 @@ SERVE_ARCHS = {   # arch: (batch, prompt, gen, {kernel: launches}); serving neve
                                 "paged_attention": 0, "ssd_scan": 32, "ssd_scan_bwd": 0}),
     MLA_ARCH: (4, 64, 32, {"flash_attention": 27, "flash_attention_bwd": 0,
                            "paged_attention": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}),
+    # the 32-35 B archs at full depth: 64.8-70.4 GB of bf16 weights beside
+    # init_weights' one f32 draw of the largest tensor (serve_bytes)
+    "command-r-35b": (4, 64, 32, {"flash_attention": 40, "flash_attention_bwd": 0,
+                                  "paged_attention": 1280, "ssd_scan": 0, "ssd_scan_bwd": 0}),
+    "qwen1.5-32b": (4, 64, 32, {"flash_attention": 64, "flash_attention_bwd": 0,
+                                "paged_attention": 2048, "ssd_scan": 0, "ssd_scan_bwd": 0}),
+    "qwen2.5-32b": (4, 64, 32, {"flash_attention": 64, "flash_attention_bwd": 0,
+                                "paged_attention": 2048, "ssd_scan": 0, "ssd_scan_bwd": 0}),
+    "llava-next-34b": (4, 64, 32, {"flash_attention": 60, "flash_attention_bwd": 0,
+                                   "paged_attention": 1920, "ssd_scan": 0,
+                                   "ssd_scan_bwd": 0}),
 }
-# 65-70 GB of bf16 weights each: not served on one 80 GB card
-CPU_ONLY_ARCHS = ("command-r-35b", "qwen1.5-32b", "qwen2.5-32b", "llava-next-34b")
+BIG_ARCHS = ("command-r-35b", "qwen1.5-32b", "qwen2.5-32b", "llava-next-34b")
+# One 80 GB card: what a run's weights, gradients and moments may take
+# (the H100 80GB HBM3 has 85.5 GB; the rest is the run's activations)
+CARD_BYTES = 80e9
+DENSE_DECODE = (2, 64, 32)        # dense_decode: layers, prefill, decode steps
 HYBRID_DECODE = (1280, 256)       # prefill, then decode across the window's wrap
 MLA_DECODE = (32, 32)             # B 1, all experts: prefill, then decode
 # A long causal prompt at deepseek's D 192 (B, S, H = Kh, D), off the main path.
@@ -247,7 +281,28 @@ TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY = (
 # train_grads: one step each, S 512. B 4 for the SSM archs: the plain scan's
 # (B, K, K, H) f32 tensors are 50 MB a chunk at B 4 (100 MB at B 8), and an f32
 # copy of hymba's 1.5B parameters holds 6 GB, its gradients as much again.
-GRADS_BATCH = {"rdmabox-paper-100m": 8, ARCH: 4, SSM_ARCH: 4, HYBRID_ARCH: 4}
+# The f32 hold keeps the f32 copy and two gradient sets, 12 bytes a parameter
+# (grads_bytes): at the depths of GRADS_LAYERS qwen2-moe-a2.7b 1.76 B
+# parameters, 21.2 GB; deepseek-v2-lite-16b 1.59 B, 19.1 GB; musicgen-large at
+# full depth 3.23 B, 38.8 GB (B 2: its 48 layers' f32 activations); llava-next-34b
+# 2.03 B, 24.4 GB; qwen1.5-32b 2.61 B, 31.3 GB; qwen2.5-32b 2.53 B, 30.4 GB;
+# command-r-35b 5.60 B (4.19 B of them its untied 256000-row embed and head),
+# 67.2 GB, so its kernel run's gradients go to host memory before the plain
+# run (GRADS_ON_HOST): 44.8 GB on the card. The MoE archs' f32 hold routes
+# every token to every expert at capacity 2.0 (grads_cfg): their (E, 2T, ·)
+# f32 buffers take ~15 GB a layer at B 4.
+GRADS_BATCH = {"rdmabox-paper-100m": 8, ARCH: 4, SSM_ARCH: 4, HYBRID_ARCH: 4,
+               MOE_ARCH: 4, MLA_ARCH: 4, "musicgen-large": 2, "llava-next-34b": 2,
+               "command-r-35b": 2, "qwen1.5-32b": 2, "qwen2.5-32b": 2}
+GRADS_LAYERS = {MOE_ARCH: 2, MLA_ARCH: 2, "llava-next-34b": 2, "command-r-35b": 2,
+                "qwen1.5-32b": 2, "qwen2.5-32b": 2}      # the rest at full depth
+GRADS_ON_HOST = ("command-r-35b",)
+# train_archs: 30 steps of launch.steps.build_train_step, real top-k
+# routing, no checkpoint: arch → (layers, None for full depth; batch). At
+# the update a parameter holds 22 bytes (train_bytes): qwen2-moe-a2.7b 2.90 B
+# parameters at 4 layers, 63.9 GB; deepseek-v2-lite-16b 2.76 B, 60.7 GB;
+# musicgen-large 3.23 B at full depth, 71.1 GB.
+TRAIN_ARCH_RUNS = {MOE_ARCH: (4, 4), MLA_ARCH: (4, 4), "musicgen-large": (None, 4)}
 # train_ssm: mamba2-780m at full width and depth (48 layers, 48 SSM heads × 64,
 # state 128, chunk 256), B 8 and S 512: two chunks, so the state's gradient
 # crosses a chunk. One checkpoint, after the last step.
@@ -441,8 +496,9 @@ def phase_compare(dev: torch.device) -> dict:
                                         "dtype": str(dtype), "max_abs_err": err})
         for case in paged_edge_cases(dev, gen, dtype):
             report["paged"].append({**check_paged_case(case, tol), "dtype": str(dtype)})
-        for name, arch in (("paged_moe", MOE_ARCH), ("paged", ARCH)):
-            if name == "paged_moe" and dtype != torch.bfloat16:
+        for name, arch in (("paged_moe", MOE_ARCH), ("paged_gqa", "qwen2.5-32b"),
+                           ("paged", ARCH)):
+            if name != "paged" and dtype != torch.bfloat16:
                 continue
             q, kv, lengths, plan = paged_inputs(dev, gen, dtype, arch)
             out = pa.paged_attention(q, kv, None, lengths, pages_per_block=4, plan=plan)
@@ -685,6 +741,9 @@ def paged_edge_cases(dev, gen, dtype):
         for D in (32, 64, 128):
             # lengths: full, mid-page, one token
             yield case(f"G {G} D {D}", 3, 2 * G, 2, D, 16, 4, 9, [144, 87, 1])
+    # qwen2.5-32b's and llava-next-34b's groups: the G 8 instance, G rows live
+    for G in (5, 7):
+        yield case(f"G {G} D 128", 3, 2 * G, 2, 128, 16, 4, 9, [144, 87, 1])
     # a stage is 16 tokens (f32, D 128) or 32 (bf16): 88 ends mid-stage either way
     yield case("mid-stage", 2, 4, 4, 128, 16, 4, 8, [88, 128])
     # R 1: 12 live descriptors in 4 forced splits of 3, so splits start at
@@ -772,13 +831,62 @@ def rel_err(full: torch.Tensor, dec: torch.Tensor) -> float:
     return ((full - dec).abs().max() / full.abs().max().clamp(min=1.0)).item()
 
 
+def largest_tensor(cfg) -> int:
+    """Elements of ``cfg``'s largest parameter, from a model on the meta device."""
+    from repro_torch.models.transformer import Transformer
+    return max(p.numel() for p in Transformer(cfg, device="meta").parameters())
+
+
+def serve_bytes(cfg) -> int:
+    """Device bytes of serving ``cfg`` before its first token: bf16 weights (2
+    bytes a parameter of ``param_count()``) and init_weights' f32 draw of the
+    largest tensor (the KV pool of a few hundred tokens is small beside them)."""
+    return 2 * cfg.param_count() + 4 * largest_tensor(cfg)
+
+
+def grads_cfg(arch: str, routed: bool = False):
+    """train_grads' config of ``arch``: depth cut to GRADS_LAYERS; with
+    ``routed`` (the f32 hold) a MoE arch routes every token to every expert
+    at capacity 2.0, as tests/test_models.py pins it (top-k routing is
+    discontinuous: an f32 difference of 1e-6 in a router logit can move a
+    token to another expert)."""
+    from repro_torch.configs import replace
+    cfg = get_config(arch)
+    if arch in GRADS_LAYERS:
+        cfg = replace(cfg, num_layers=GRADS_LAYERS[arch])
+    if routed and cfg.uses_moe:
+        cfg = replace(cfg, top_k=cfg.num_experts, capacity_factor=2.0)
+    return cfg
+
+
+def grads_bytes(arch: str) -> int:
+    """Device bytes of train_grads' f32 hold: the f32 copy and the plain run's
+    gradients, and the kernel run's unless they go to host memory."""
+    return (8 if arch in GRADS_ON_HOST else 12) * grads_cfg(arch).param_count()
+
+
+def train_arch_cfg(arch: str):
+    """train_archs' config of ``arch``: depth cut to TRAIN_ARCH_RUNS' layers."""
+    from repro_torch.configs import replace
+    layers = TRAIN_ARCH_RUNS[arch][0]
+    cfg = get_config(arch)
+    return cfg if layers is None else replace(cfg, num_layers=layers)
+
+
+def train_bytes(arch: str) -> int:
+    """Device bytes of train_archs' state at the AdamW update: bf16 weights,
+    gradients and their clipped copies (6 bytes a parameter), and the old and
+    the new f32 moments side by side (16: ``adamw.update`` returns new ones)."""
+    return 22 * train_arch_cfg(arch).param_count()
+
+
 @torch.no_grad()
-def phase_serve_archs() -> dict:
-    """``serve.main`` at full width for the other archs that fit one card, each
-    with its launches reset just before and read just after, its model freed
-    before the next; returns arch → launches."""
+def phase_serve_archs(smi: str) -> dict:
+    """``serve.main`` at full width and depth for every arch besides
+    ``serve``'s and ``serve_ssm``'s, each with its launches reset just before
+    and read just after, its model freed before the next; the peak device
+    memory beside serve_bytes' reckoning. Returns arch → launches."""
     from repro_torch.configs import get_config as cfg_of
-    t_phase = time.perf_counter()
     out = {}
     for arch, (B, prompt, gen, want) in SERVE_ARCHS.items():
         cfg = cfg_of(arch)
@@ -798,8 +906,10 @@ def phase_serve_archs() -> dict:
                 logits).all():
             raise AssertionError(f"{arch}: decode logits {tuple(logits.shape)} or not finite")
         out[arch] = launches
-        print(f"{arch}: prefill {res.prefill_s:.6f} s, decode {gen * B / res.decode_s:,.1f} "
-              f"tok/s, launches {launches}")
+        peak_gb, reckoned_gb = torch.cuda.max_memory_allocated() / 1e9, serve_bytes(cfg) / 1e9
+        print(f"{arch}: {cfg.num_layers} layers, prefill {res.prefill_s:.6f} s, decode "
+              f"{gen * B / res.decode_s:,.1f} tok/s, launches {launches}, peak "
+              f"{peak_gb:.2f} GB (reckoned {reckoned_gb:.2f}) [{smi}]")
         emit({"phase": "serve_archs", "arch": arch, "family": cfg.family,
               "layers": cfg.num_layers, "d_model": cfg.d_model,
               "params": sum(p.numel() for p in res.model.parameters()),
@@ -807,16 +917,10 @@ def phase_serve_archs() -> dict:
               "batch": B, "prompt": prompt, "gen": gen, "embeddings": bool(cfg.frontend),
               "prefill_s": res.prefill_s, "decode_s": res.decode_s,
               "decode_tok_s": gen * B / res.decode_s, "launches": launches,
-              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "seconds": seconds})
+              "peak_mem_gb": peak_gb, "reckoned_gb": reckoned_gb, "seconds": seconds,
+              "card": smi})
         del res, logits
     torch.cuda.empty_cache()
-    not_served = {a: {"params": cfg_of(a).param_count(),
-                      "bf16_weights_gb": 2 * cfg_of(a).param_count() / 1e9}
-                  for a in CPU_ONLY_ARCHS}
-    print(f"not served on the card (bf16 weights past one 80 GB card with room): "
-          f"{sorted(not_served)}; they serve on the CPU at --reduced")
-    emit({"phase": "serve_archs", "not_served": not_served,
-          "seconds": time.perf_counter() - t_phase})
     return out
 
 
@@ -858,8 +962,12 @@ def decode_vs_forward(cfg, prompt: int, steps: int, seed: int) -> dict:
     from repro_torch.models import init_transformer
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    toks = torch.from_numpy(np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (1, prompt + steps))).cuda()
+    rng = np.random.default_rng(seed)
+    if cfg.frontend:     # a stubbed frontend's N(0, 1) embeddings, as serve draws them
+        toks = torch.from_numpy(rng.normal(size=(1, prompt + steps, cfg.d_model)).astype(
+            np.float32)).cuda().bfloat16()
+    else:
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, prompt + steps))).cuda()
     model = init_transformer(cfg, seed=0, device="cuda")
     dvf, fwd, launched = {}, {}, {}
     for run, dtype, plain in DECODE_RUNS:
@@ -911,6 +1019,28 @@ def phase_hybrid_decode() -> None:
     hold_decode_vs_forward("hybrid_decode", HYBRID_ARCH, res, prefill=prompt,
                            decode=steps, window=cfg.window,
                            ring_slot_of_first_decode=prompt % cfg.window)
+
+
+def phase_dense_decode() -> None:
+    """The four 32-35 B archs at full width, depth cut to 2 layers: prefill of
+    64 tokens through flash, 32 decode steps through paged attention (GQA
+    groups 8, 1, 5 and 7 at D 128), one forward over the 96 (llava-next-34b
+    on embeddings); held in f32 as hymba is."""
+    from repro_torch.configs import replace
+    layers, prompt, steps = DENSE_DECODE
+    for seed, arch in enumerate(BIG_ARCHS, start=5):
+        base = get_config(arch)
+        cfg = replace(base, num_layers=layers)
+        res = decode_vs_forward(cfg, prompt, steps, seed=seed)
+        hold_decode_vs_forward("dense_decode", arch, res, layers=layers,
+                               full_layers=base.num_layers, heads=cfg.num_heads,
+                               kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                               embeddings=bool(cfg.frontend), prefill=prompt, decode=steps)
+        # the prefill's and the forward's flash, the decode's paged attention
+        want = {"flash_attention": 2 * layers, "paged_attention": layers * steps}
+        got = {k: res["launches"]["f32"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"dense_decode {arch} f32: launches {got}, want {want}")
 
 
 def phase_mla_decode() -> None:
@@ -1260,7 +1390,8 @@ def paged_row(q, kv, lengths, plan, live_blocks, launches: int, err: float, case
 
 def phase_kernels(dev: torch.device, main_err: dict, launches: dict,
                   kv_spill_launches: int, arch_launches: dict, train_launches: dict,
-                  grads_launches: dict, ssm_train_launches: dict) -> None:
+                  grads_launches: dict, ssm_train_launches: dict,
+                  arch_train_launches: dict) -> None:
     cfg = get_config(ARCH)
     gen = torch.Generator(device=dev).manual_seed(1)
     dt = torch.bfloat16
@@ -1297,6 +1428,11 @@ def phase_kernels(dev: torch.device, main_err: dict, launches: dict,
     flash_bwd_heads = flash_bwd_row(dev, gen, GRADS_BATCH[ARCH], TRAIN_SEQ, H, Kh, D,
                                     grads_launches[ARCH]["flash_attention_bwd"],
                                     f"train_grads: {ARCH} backward, H = Kh = {H}")
+    mc, Bt = get_config(MOE_ARCH), TRAIN_ARCH_RUNS[MOE_ARCH][1]
+    flash_bwd_moe = flash_bwd_row(dev, gen, Bt, TRAIN_SEQ, mc.num_heads, mc.num_kv_heads,
+                                  mc.head_dim,
+                                  arch_train_launches[MOE_ARCH]["flash_attention_bwd"],
+                                  f"train_archs: {MOE_ARCH} backward, D {mc.head_dim}")
     B, _, _, Hm, Khm, Dm, _, _ = flash_mla_shape()
     # same kernel, off the main path: its launches are the main path's
     flash_bwd_mla = flash_bwd_row(dev, gen, B, TRAIN_SEQ, Hm, Khm, Dm,
@@ -1315,6 +1451,12 @@ def phase_kernels(dev: torch.device, main_err: dict, launches: dict,
     paged_moe = paged_row(pq, pkv, lengths, plan, live,
                           arch_launches[MOE_ARCH]["paged_attention"],
                           main_err[("paged_moe", dt)], f"serving: {MOE_ARCH} decode, D 128")
+    del pq, pkv, lengths, plan
+    gqa = "qwen2.5-32b"
+    pq, pkv, lengths, plan = paged_inputs(dev, gen, dt, gqa)
+    paged_gqa = paged_row(pq, pkv, lengths, plan, live,
+                          arch_launches[gqa]["paged_attention"],
+                          main_err[("paged_gqa", dt)], f"serving: {gqa} decode, G 5, D 128")
     del pq, pkv, lengths, plan
     pq, pkv, lengths, plans = paged_long_inputs(dev, gen)
     B = pq.shape[0]
@@ -1362,9 +1504,9 @@ def phase_kernels(dev: torch.device, main_err: dict, launches: dict,
         grads_launches[HYBRID_ARCH]["ssd_scan_bwd"],
         f"train_grads: {HYBRID_ARCH} backward, N {hc.ssm_state}")
     emit({"kernels": [flash, flash_long, flash_mla, flash_hybrid, flash_long_mla, flash_train,
-                      flash_bwd, flash_bwd_heads, flash_bwd_mla, paged, paged_moe,
-                      paged_long, scan, scan_hybrid, scan_train, scan_bwd,
-                      scan_bwd_hybrid]})
+                      flash_bwd, flash_bwd_heads, flash_bwd_mla, flash_bwd_moe, paged,
+                      paged_moe, paged_gqa, paged_long, scan, scan_hybrid, scan_train,
+                      scan_bwd, scan_bwd_hybrid]})
 
 
 def check_engine_clean(stats: dict, what: str) -> dict:
@@ -1673,8 +1815,17 @@ def phase_examples() -> None:
 def flash_bwd_shapes() -> list:
     """(case, B, Sq, Skv, H, Kh, D, causal, window) of the backward's checks:
     the reference suite's flash shapes, rdmabox-paper-100m's training shape,
-    qwen1.5-0.5b's heads (H = Kh = 16), hymba's window and deepseek's D 192."""
+    qwen1.5-0.5b's heads (H = Kh = 16), hymba's window, deepseek's D 192, and
+    the D 128 training shapes: qwen2-moe-a2.7b's (train_archs' B) and the GQA
+    groups 5, 7 and 8 of qwen2.5-32b, llava-next-34b and command-r-35b
+    (train_grads' B)."""
     tc, qc, hc = get_config(TRAIN_ARCH), get_config(ARCH), get_config(HYBRID_ARCH)
+
+    def training(arch, B):
+        c = get_config(arch)
+        return (f"{arch} training", B, TRAIN_SEQ, TRAIN_SEQ, c.num_heads, c.num_kv_heads,
+                c.head_dim, True, None)
+
     return ([("reference shape", 2, *s) for s in FLASH_SHAPES] + [
         ("train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, tc.num_heads, tc.num_kv_heads,
          tc.head_dim, True, None),
@@ -1682,7 +1833,10 @@ def flash_bwd_shapes() -> list:
          qc.num_kv_heads, qc.head_dim, True, None),
         (f"{HYBRID_ARCH} window", 1, 1280, 1280, hc.num_heads, hc.num_kv_heads, hc.head_dim,
          True, hc.window),
-        (f"{MLA_ARCH} D 192", *flash_mla_shape())])
+        (f"{MLA_ARCH} D 192", *flash_mla_shape()),
+        training(MOE_ARCH, TRAIN_ARCH_RUNS[MOE_ARCH][1])] + [
+        training(a, GRADS_BATCH[a]) for a in ("qwen2.5-32b", "llava-next-34b",
+                                               "command-r-35b")])
 
 
 def compare_flash_bwd(dev, gen) -> tuple[list, float]:
@@ -1732,22 +1886,21 @@ def train_args(ckpt: Path, steps: int, *extra: str) -> list:
             str(ckpt), "--log-every", "5", *extra]
 
 
-def train_launch_counts(arch: str, steps: int, forwards: int = 1) -> dict:
-    """The launches of ``steps`` train steps of ``arch``: ``forwards`` forwards
-    (2 with --remat full) and one backward a step of flash in every attention
-    layer and of the scan in every SSM layer (a hybrid layer has both); no
-    paged attention."""
-    cfg = get_config(arch)
-    attn = 0 if cfg.family == "ssm" else cfg.num_layers
-    scan = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+def train_launch_counts(cfg, steps: int, forwards: int = 1) -> dict:
+    """The launches of ``steps`` train steps of ``cfg`` (its depth as given):
+    ``forwards`` forwards (2 with --remat full) and one backward a step of
+    flash in every attention layer and of the scan in every SSM layer (a
+    hybrid layer has both); no paged attention."""
+    attn = cfg.num_layers if cfg.uses_attention else 0
+    scan = cfg.num_layers if cfg.uses_ssm else 0
     return {"flash_attention": forwards * attn * steps, "flash_attention_bwd": attn * steps,
             "paged_attention": 0, "ssd_scan": forwards * scan * steps,
             "ssd_scan_bwd": scan * steps}
 
 
 def hold_train_launches(what: str, launches: dict, steps: int, forwards: int,
-                        arch: str = TRAIN_ARCH) -> None:
-    want = train_launch_counts(arch, steps, forwards)
+                        cfg=None) -> None:
+    want = train_launch_counts(cfg or get_config(TRAIN_ARCH), steps, forwards)
     if launches != want:
         raise AssertionError(f"{what}: launches {launches}, want {want}")
 
@@ -1837,7 +1990,7 @@ def phase_train_ssm() -> dict:
     torch.cuda.synchronize()
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    hold_train_launches("train_ssm", launches, SSM_TRAIN_STEPS, 1, SSM_ARCH)
+    hold_train_launches("train_ssm", launches, SSM_TRAIN_STEPS, 1, cfg)
     ends_with(out, "TRAINING DONE", "train_ssm")
     losses = res.losses
     if len(losses) != SSM_TRAIN_STEPS or not np.isfinite(losses).all():
@@ -1911,9 +2064,37 @@ def profile_train(model, opt_state, done: int, kernels: dict, what: str = "train
     return out
 
 
-def grads_once(model, tokens, targets, plain: bool) -> tuple[dict, float, dict]:
+def frontend_embeds(cfg, tokens: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """A stubbed modality frontend's training input (B, S, d_model) bf16, the
+    shape ``launch.steps.data_structs`` gives it: a fixed N(0, 1) codebook of
+    ``vocab_size`` rows drawn from ``seed``, looked up at the token ids, so
+    the next token is as learnable from the embeddings as from the ids."""
+    gen = torch.Generator(device=tokens.device).manual_seed(seed)
+    book = torch.randn(cfg.vocab_size, cfg.d_model, generator=gen, device=tokens.device)
+    return book[tokens].bfloat16()
+
+
+def train_inputs(cfg, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """A ``SyntheticTokens`` batch on the card: (token ids, or a frontend
+    arch's embeddings; targets)."""
+    tokens = torch.from_numpy(batch["tokens"]).long().cuda()
+    targets = torch.from_numpy(batch["targets"]).long().cuda()
+    return (frontend_embeds(cfg, tokens) if cfg.frontend else tokens), targets
+
+
+def set_cfg(model, cfg) -> None:
+    """Run ``model`` as ``cfg`` from here on (same weights; the MoE reads its
+    routing from the config at each call)."""
+    model.cfg = cfg
+    for blk in model.blocks:
+        blk.cfg = cfg
+
+
+def grads_once(model, tokens, targets, plain: bool, host: bool = False
+               ) -> tuple[dict, float, dict]:
     """One forward and backward of ``loss_fn``: (gradient by parameter, loss,
-    launches); with ``plain`` flash runs its plain versions on the card."""
+    launches); with ``plain`` flash runs its plain versions on the card; with
+    ``host`` the gradients are moved to host memory."""
     from repro_torch.models import loss_fn
     model.zero_grad(set_to_none=True)
     reset_launches()
@@ -1922,79 +2103,172 @@ def grads_once(model, tokens, targets, plain: bool) -> tuple[dict, float, dict]:
         loss.backward()
     torch.cuda.synchronize()
     launched = read_launches()
-    grads = {n: p.grad for n, p in model.named_parameters()}
-    for p in model.parameters():
+    grads = {}
+    for n, p in model.named_parameters():
+        grads[n] = p.grad.cpu() if host and p.grad is not None else p.grad
         p.grad = None
-    return grads, float(loss), launched
+    return grads, float(loss.detach()), launched
 
 
-def phase_train_grads() -> dict:
+def unreached_leaf(cfg, name: str) -> bool:
+    """A leaf the loss reaches in neither path, nor in the reference: an SSM
+    block's norm_ffn (it has no FFN but carries the leaf), and a frontend
+    arch's untied embed (its inputs are embeddings)."""
+    return ((cfg.family == "ssm" and name.endswith(".norm_ffn"))
+            or (bool(cfg.frontend) and name == "embed"))
+
+
+def phase_train_grads(smi: str) -> dict:
     """Every parameter's gradient through the kernels against the gradient
     with flash and the scan swapped for their plain versions on the card, one
-    step at full width of rdmabox-paper-100m, qwen1.5-0.5b, mamba2-780m and
-    hymba-1.5b: printed in bf16, held on an f32 copy (finite, nonzero, within
-    TRAIN_GRAD_TOL in relative norm), each arch's launches held. Returns each
-    arch's kernel launches in its bf16 step."""
+    step at full width of every arch of GRADS_BATCH at its depth
+    (GRADS_LAYERS): printed in bf16 (held finite; a MoE arch routes its own
+    top-k), held on an f32 copy (finite, nonzero, within TRAIN_GRAD_TOL in
+    relative norm; a MoE arch routes every token to every expert), each
+    arch's launches held in both. Returns each arch's kernel launches in its
+    bf16 step."""
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
     from repro_torch.models import init_transformer
     torch.backends.cuda.matmul.allow_tf32 = False
     launches = {}
     for arch, B in GRADS_BATCH.items():
-        cfg = get_config(arch)
+        cfg = grads_cfg(arch)
+        host = arch in GRADS_ON_HOST
+        print(f"train_grads {arch}: {cfg.num_layers} of {get_config(arch).num_layers} "
+              f"layers, B {B}, S {TRAIN_SEQ}, {cfg.param_count() / 1e9:.2f} B parameters, "
+              f"f32 hold {grads_bytes(arch) / 1e9:.1f} GB on the card"
+              + (" (kernel gradients on the host)" if host else ""))
         batch = SyntheticTokens(DataConfig(cfg.vocab_size, TRAIN_SEQ, B)).batch_at(0)
-        tokens = torch.from_numpy(batch["tokens"]).long().cuda()
-        targets = torch.from_numpy(batch["targets"]).long().cuda()
+        tokens, targets = train_inputs(cfg, batch)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         model = init_transformer(cfg, seed=0, device="cuda").requires_grad_(True)
-        out = {"phase": "train_grads", "arch": arch, "batch": B, "seq": TRAIN_SEQ,
-               "tol_f32": TRAIN_GRAD_TOL}
+        out = {"phase": "train_grads", "arch": arch, "layers": cfg.num_layers,
+               "full_layers": get_config(arch).num_layers, "batch": B, "seq": TRAIN_SEQ,
+               "params": cfg.param_count(), "reckoned_gb": grads_bytes(arch) / 1e9,
+               "kernel_grads_on_host": host, "embeddings": bool(cfg.frontend),
+               "tol_f32": TRAIN_GRAD_TOL, "card": smi}
         for dtype in ("bf16", "f32"):
             if dtype == "f32":
                 model.float()
-            kernel, loss_k, launched_k = grads_once(model, tokens, targets, plain=False)
+                set_cfg(model, grads_cfg(arch, routed=True))
+            kernel, loss_k, launched_k = grads_once(model, tokens, targets, plain=False,
+                                                    host=host and dtype == "f32")
             plain, loss_p, launched_p = grads_once(model, tokens, targets, plain=True)
-            want = train_launch_counts(arch, 1)
+            want = train_launch_counts(cfg, 1)
             if launched_k != want or any(launched_p.values()):
                 raise AssertionError(f"{arch} {dtype}: launches {launched_k} with the "
                                      f"kernels, {launched_p} without")
+            if not (np.isfinite(loss_k) and np.isfinite(loss_p)):
+                raise AssertionError(f"{arch} {dtype}: loss {loss_k} vs plain {loss_p}")
             errs, norms, unreached = {}, {}, []
             for name, g in kernel.items():
                 p = plain[name]
-                # an SSM block has no FFN, but carries the reference's norm_ffn
-                # leaf: the loss reaches it in neither path (nor in the reference)
-                if (g is None and p is None and cfg.family == "ssm"
-                        and name.endswith(".norm_ffn")):
+                if g is None and p is None and unreached_leaf(cfg, name):
                     unreached.append(name)
                     continue
                 if g is None or p is None:
                     raise AssertionError(f"{arch} {dtype}: {name} got no gradient")
-                gf, pf = g.float(), p.float()
+                gf, pf = g.float().to(p.device), p.float()
+                if not torch.isfinite(gf).all():
+                    raise AssertionError(f"{arch} {dtype} {name}: non-finite gradient")
                 norms[name] = float(gf.norm())
                 errs[name] = float((gf - pf).norm() / pf.norm().clamp(min=1e-30))
-                if dtype == "f32" and not (torch.isfinite(gf).all() and norms[name] > 0
-                                           and errs[name] <= TRAIN_GRAD_TOL):
+                if dtype == "f32" and not (norms[name] > 0 and errs[name] <= TRAIN_GRAD_TOL):
                     raise AssertionError(f"{arch} f32 {name}: norm {norms[name]:.3e}, "
                                          f"relative error {errs[name]:.3e}")
+                del gf, pf
             worst = max(errs, key=errs.get)
             print(f"train_grads {arch} {dtype}: {len(errs)} parameters, worst relative "
                   f"error {errs[worst]:.3e} ({worst}), loss {loss_k:.6f} vs plain "
-                  f"{loss_p:.6f}" + (" (held)" if dtype == "f32" else ""))
+                  f"{loss_p:.6f}, top_k {model.cfg.top_k}"
+                  + (" (held)" if dtype == "f32" else "") + f" [{smi}]")
             out[dtype] = {"parameters": len(errs), "unreached": unreached,
-                          "max_rel_err": errs[worst],
+                          "max_rel_err": errs[worst], "top_k": model.cfg.top_k,
+                          "capacity_factor": model.cfg.capacity_factor,
                           "worst": worst, "min_grad_norm": min(norms.values()),
                           "loss_kernels": loss_k, "loss_plain": loss_p,
                           "mixer_rel_err": {n: e for n, e in errs.items()
                                             if n.startswith("blocks.0.")
-                                            and (".attn." in n or ".ssm." in n)},
+                                            and (".attn." in n or ".ssm." in n
+                                                 or ".mla." in n or ".moe." in n)},
                           "launches": launched_k}
             launches.setdefault(arch, launched_k)
             del kernel, plain
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         emit(out)
-        del model
+        del model, tokens, targets
         torch.cuda.empty_cache()
     return launches
+
+
+def phase_train_archs(smi: str) -> dict:
+    """30 steps of ``launch.steps.build_train_step`` (the step ``launch.train``
+    runs) for each arch of TRAIN_ARCH_RUNS at full width and its depth, real
+    top-k routing, ``SyntheticTokens`` (a frontend arch on their codebook
+    embeddings), no checkpoint: the loss finite at every step and the mean of
+    the last 5 below the first 5's by TRAIN_LOSS_DROP, one flash forward and
+    backward an attention layer a step; step seconds, train tok/s, peak
+    memory. Returns arch → launches."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import init_transformer
+    from repro_torch.optim import adamw
+    out = {}
+    for arch, (_, B) in TRAIN_ARCH_RUNS.items():
+        cfg = train_arch_cfg(arch)
+        steps = TRAIN_STEPS
+        run = RunConfig(total_steps=steps, warmup_steps=max(10, steps // 10))
+        data = SyntheticTokens(DataConfig(cfg.vocab_size, TRAIN_SEQ, B, seed=run.seed))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = init_transformer(cfg, seed=run.seed, device="cuda").requires_grad_(True)
+        opt = adamw.init(dict(model.named_parameters()), run)
+        step_fn = build_train_step(cfg, run)
+        losses = []
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for step in range(steps):
+            tokens, targets = train_inputs(cfg, data.batch_at(step))
+            opt, metrics = step_fn(model, opt, {"tokens": tokens, "targets": targets})
+            losses.append(metrics["loss"])
+            if step == 0:
+                torch.cuda.synchronize()
+                first_step_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        hold_train_launches(f"train_archs {arch}", launches, steps, 1, cfg)
+        losses = np.array([float(x) for x in losses])
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"train_archs {arch}: losses {losses}")
+        first, last = float(losses[:5].mean()), float(losses[-5:].mean())
+        if not last < first - TRAIN_LOSS_DROP:
+            raise AssertionError(f"train_archs {arch}: mean loss of the last 5 steps "
+                                 f"{last:.4f} not below the first 5's {first:.4f} by "
+                                 f"{TRAIN_LOSS_DROP}")
+        step_s = (seconds - first_step_s) / (steps - 1)
+        tok_s = B * TRAIN_SEQ / step_s
+        print(f"train_archs {arch}: {cfg.num_layers} of {get_config(arch).num_layers} "
+              f"layers, B {B}, S {TRAIN_SEQ}, {step_s:.6f} s a step after the first "
+              f"({first_step_s:.3f} s), {tok_s:,.0f} tok/s, peak {peak_gb:.2f} GB "
+              f"(reckoned {train_bytes(arch) / 1e9:.2f} GB of state), loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f} [{smi}]")
+        emit({"phase": "train_archs", "arch": arch, "family": cfg.family,
+              "layers": cfg.num_layers, "full_layers": get_config(arch).num_layers,
+              "d_model": cfg.d_model, "params": cfg.param_count(), "top_k": cfg.top_k,
+              "embeddings": bool(cfg.frontend), "batch": B, "seq": TRAIN_SEQ,
+              "steps": steps, "step_s": step_s, "first_step_s": first_step_s,
+              "train_tok_s": tok_s, "seconds": seconds, "losses": losses.tolist(),
+              "mean_first5": first, "mean_last5": last, "launches": launches,
+              "peak_mem_gb": peak_gb, "reckoned_gb": train_bytes(arch) / 1e9, "card": smi})
+        out[arch] = launches
+        del model, opt, step_fn, metrics
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_moe_repeat() -> None:
@@ -2325,7 +2599,7 @@ def phase_steps(smi: str) -> dict:
     """``STEP_RUNS`` through ``launch.steps`` on a 1×1 mesh: seconds, bound,
     share, launches, peak memory, the kernel at the step's own inputs against
     its plain version, the step against the plain versions on an f32 copy
-    (module docstring, phase 22)."""
+    (module docstring, phase 24)."""
     import dataclasses
 
     from repro_torch.configs import SHAPES, RunConfig
@@ -2424,17 +2698,20 @@ def main() -> None:
     torch.cuda.empty_cache()
     kv_spill_launches = timed("kv_spill", phase_kv_spill, dev)
     torch.cuda.empty_cache()
-    arch_launches = timed("serve_archs", phase_serve_archs)
+    arch_launches = timed("serve_archs", phase_serve_archs, smi)
+    timed("dense_decode", phase_dense_decode)
     timed("hybrid_decode", phase_hybrid_decode)
     timed("mla_decode", phase_mla_decode)
     train_launches = timed("train", phase_train)
     ssm_train_launches = timed("train_ssm", phase_train_ssm)
-    grads_launches = timed("train_grads", phase_train_grads)
+    arch_train_launches = timed("train_archs", phase_train_archs, smi)
+    grads_launches = timed("train_grads", phase_train_grads, smi)
     timed("moe_repeat", phase_moe_repeat)
     timed("train_resume", phase_train_resume)
     timed("steps", phase_steps, smi)
     timed("kernels", phase_kernels, dev, main_err, launches, kv_spill_launches,
-          arch_launches, train_launches, grads_launches, ssm_train_launches)
+          arch_launches, train_launches, grads_launches, ssm_train_launches,
+          arch_train_launches)
     emit({"phase_seconds": PHASE_SECONDS, "total_s": time.perf_counter() - t_start})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -677,10 +677,18 @@ class RDMABox:
                 if attempt < self.cfg.rnr_retry_limit:
                     self._retries[r.wr_id] = attempt + 1
                     retried.append((r, attempt + 1))
+        # requests that faulted in one work request and wait as long are
+        # resubmitted together (one ``submit_many``), so they merge again as
+        # they faulted: one timer each let the merger drain between their
+        # resubmits, split the replay into several work requests, and count
+        # one fault's replay more than once
+        groups: Dict[Tuple[float, Verb], List[WorkRequest]] = {}
         for r, attempt in retried:
             self.rnr_retries.add()
             delay = self._rnr_delay_us(r.wr_id, attempt) * self.cfg.nic_scale
-            timer = threading.Timer(delay, self._resubmit, args=(r,))
+            groups.setdefault((delay, r.verb), []).append(r)
+        for (delay, _), wrs in groups.items():
+            timer = threading.Timer(delay, self._resubmit, args=(wrs,))
             timer.daemon = True
             timer.start()
         return {r.wr_id for r, _ in retried}
@@ -705,8 +713,10 @@ class RDMABox:
             self._retry_delay_us[wr_id] = delay
         return delay
 
-    def _resubmit(self, wr: WorkRequest) -> None:
+    def _resubmit(self, wrs: List[WorkRequest]) -> None:
         if self._closed:
             return
-        wr.enqueue_time = time.perf_counter()
-        self._queues[wr.verb].submit(wr)
+        now = time.perf_counter()
+        for wr in wrs:
+            wr.enqueue_time = now
+        self._queues[wrs[0].verb].submit_many(wrs)

@@ -1421,6 +1421,36 @@ def test_churn_hammer_stays_byte_exact():
         assert st["resident_pages"] <= st["capacity_pages"] + 32
 
 
+def test_rnr_replays_of_one_work_request_resubmit_together():
+    """The requests of one work request that an MR-cache fault failed with
+    RNR_RETRY_ERR wait the same backoff and ride the merge queue again in one
+    submit, so they merge again as they faulted and the donor counts one
+    replay for the fault (the churn hammer's replays <= faults). A timer for
+    each let the merger drain between their resubmits: the hammer's port
+    twin then failed 5 of 300 runs under six workers (replays one past
+    faults), its reference twin none."""
+    from repro_torch.core import rdmabox as rb
+    spec = box.ClusterSpec(num_donors=1, donor_pages=64, replication=1, nic_scale=2e-8)
+    with box.open(spec, device="cpu") as s:
+        eng, donor = s.engine(0), s.donors[0]
+        wrs = [WorkRequest(Verb.READ, donor, p) for p in (3, 9, 17)]
+        for wr in wrs:        # pending, as the client's own futures are
+            eng._futures[wr.wr_id & rb._SHARD_MASK][wr.wr_id] = None
+        submits = []
+        queue = eng._queues[Verb.READ]
+        queue.submit = lambda wr: submits.append([wr])
+        queue.submit_many = lambda batch: submits.append(list(batch))
+        wc = WorkCompletion(wrs[0].wr_id, Verb.READ, donor, 3 * PAGE_SIZE,
+                            status=WCStatus.RNR_RETRY_ERR, requests=wrs)
+        assert eng._maybe_retry(wc) == {wr.wr_id for wr in wrs}
+        deadline = time.monotonic() + 10
+        while sum(map(len, submits)) < len(wrs) and time.monotonic() < deadline:
+            time.sleep(0.001)
+        for wr in wrs:
+            eng._futures[wr.wr_id & rb._SHARD_MASK].pop(wr.wr_id)
+    assert submits == [wrs]
+
+
 def test_evict_between_classify_and_serve_is_byte_exact():
     """White-box evict-while-serving race: deregistering an extent after
     bytes were written does not lose them — the region owns the bytes,

@@ -81,6 +81,50 @@ def test_flash_backward_matches_jax_vjp(Sq, Skv, H, Kh, D, causal, window):
         assert rel(leaf.grad, w) <= BWD_TOL, f"d{name}: torch autograd vs jax.vjp"
 
 
+# The training paths of the 32-35 B archs and of MLA (chip_smoke.py's
+# train_grads on the card): D 128 with GQA groups 5 (qwen2.5-32b, 40/8), 7
+# (llava-next-34b, 56/8) and 8 (command-r-35b, 64/8), and MLA's attention at
+# D 192 whose V is padded from 128 with zero columns (models/mla.py), the
+# output's padded columns dropped (so their cotangent is zero), at small S.
+ARCH_SHAPES = [   # Sq, Skv, H, Kh, D, causal, window, V columns (None: all D)
+    (64, 64, 10, 2, 128, True, None, None),
+    (64, 64, 14, 2, 128, True, None, None),
+    (96, 96, 16, 2, 128, True, None, None),
+    (64, 64, 4, 4, 192, True, None, 128),
+]
+
+
+def padded_v_inputs(shape, seed):
+    """``inputs`` with V's and dO's columns past ``v_cols`` zero."""
+    q, k, v, do = inputs(shape[:5], seed=seed)
+    v_cols = shape[7]
+    if v_cols is not None:
+        v[..., v_cols:] = 0.0
+        do[..., v_cols:] = 0.0
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("Sq,Skv,H,Kh,D,causal,window,v_cols", ARCH_SHAPES)
+def test_flash_backward_at_arch_groups_matches_jax_vjp(Sq, Skv, H, Kh, D, causal, window,
+                                                       v_cols):
+    jax = pytest.importorskip("jax")
+    from repro.kernels.flash_attention.ref import attention_ref as ref_attention
+    q, k, v, do = padded_v_inputs((Sq, Skv, H, Kh, D, causal, window, v_cols), seed=5)
+    _, vjp = jax.vjp(lambda a, b, c: ref_attention(a, b, c, causal=causal, window=window),
+                     q, k, v)
+    want = [np.asarray(g) for g in vjp(do)]
+    qt, kt, vt, dot = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = flash_attention_online(qt, kt, vt, causal=causal, window=window,
+                                    q_offset=Skv - Sq, return_lse=True)
+    plain = flash_attention_bwd_ref(qt, kt, vt, o, lse, dot, causal=causal,
+                                    window=window, q_offset=Skv - Sq)
+    for name, w, p in zip("qkv", want, plain):
+        assert p.shape == w.shape and p.dtype == torch.float32
+        assert rel(p, w) <= BWD_TOL, f"d{name}: plain backward vs jax.vjp"
+    if v_cols is not None:   # nothing flows into the padding
+        assert not plain[2][..., v_cols:].any() and not o[..., v_cols:].any()
+
+
 @pytest.mark.parametrize("Sq,Skv,H,Kh,D,causal,window", FLASH_SHAPES)
 def test_lse_is_logsumexp_of_masked_scores(Sq, Skv, H, Kh, D, causal, window):
     q, k, v, _ = inputs((Sq, Skv, H, Kh, D), seed=1)
@@ -248,6 +292,27 @@ def test_flash_backward_kernel_vs_plain_on_gpu(cuda, dtype):
         for a, b, w in zip(got, again, want):
             assert torch.equal(a, b)              # no atomics: the same bits
             torch.testing.assert_close(a.float(), w.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Skv,H,Kh,D,causal,window,v_cols", ARCH_SHAPES)
+def test_flash_backward_at_arch_groups_on_gpu(cuda, dtype, Sq, Skv, H, Kh, D, causal,
+                                              window, v_cols):
+    """ARCH_SHAPES through the CUDA backward against the plain one, twice with
+    equal bits (chip_smoke.py holds the same groups at the training length)."""
+    shape = (Sq, Skv, H, Kh, D, causal, window, v_cols)
+    q, k, v, do = (torch.from_numpy(x).to(cuda, dtype)
+                   for x in padded_v_inputs(shape, seed=6))
+    o, lse = fa._launch(q, k, v, causal, window, with_lse=True)
+    got = fa._launch_bwd(q, k, v, o, lse, do, causal, window)
+    again = fa._launch_bwd(q, k, v, o, lse, do, causal, window)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window,
+                                   q_offset=Skv - Sq)
+    torch.cuda.synchronize()
+    tol = GPU_TOL[dtype]
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.float(), w.float(), atol=tol, rtol=tol)
 
 
 def test_flash_op_backward_launches_the_kernel_on_gpu(cuda):

@@ -232,6 +232,55 @@ def test_paged_plain_vs_reference(ref, R, contig, dtype):
                               torch.from_numpy(lengths)), oracle, tol)
 
 
+def gqa_group_inputs(rng, G):
+    """D 128 decode at GQA group G (qwen2.5-32b's 5, llava-next-34b's 7): 2 KV
+    heads, pages of 16, lengths that end on a page, mid-page, and at one
+    token. Returns numpy (q, pool, table, lengths)."""
+    B, Kh, D, T, Pmax = 3, 2, 128, 16, 9
+    P = B * Pmax + 4
+    q = rng.normal(size=(B, G * Kh, D))
+    kv = rng.normal(size=(P, T, 2, Kh, D))
+    table = rng.permutation(P)[:B * Pmax].reshape(B, Pmax).astype(np.int32)
+    lengths = np.array([Pmax * T, 87, 1], np.int32)
+    return q, kv, table, lengths
+
+
+@pytest.mark.parametrize("G", [5, 7])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_plain_vs_reference_at_gqa_groups(ref, G, dtype):
+    """The plain paged attention (what the CPU runs) against the JAX oracle at
+    the groups that go through the kernel's padded G 8 instance on the card."""
+    rng = np.random.default_rng(40 + G)
+    q, kv, table, lengths = gqa_group_inputs(rng, G)
+    qj = ref.jnp.asarray(q, getattr(ref.jnp, dtype))
+    kvj = ref.jnp.asarray(kv, getattr(ref.jnp, dtype))
+    qt, kvt = (torch.from_numpy(np.array(x, np.float32)).to(getattr(torch, dtype))
+               for x in (qj, kvj))
+    oracle = ref.paged_oracle(qj, kvj, ref.jnp.asarray(table), ref.jnp.asarray(lengths))
+    for R in (1, 4):
+        out = pa.paged_attention(qt, kvt, table, torch.from_numpy(lengths),
+                                 pages_per_block=R)
+        assert out.dtype == getattr(torch, dtype) and out.shape == qt.shape
+        close(out, oracle, PAGED_TOL[dtype])
+
+
+@pytest.mark.parametrize("G", [5, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_at_gqa_groups_on_gpu(cuda, G, dtype):
+    """The same inputs through the CUDA kernel against the plain version."""
+    q, kv, table, lengths = gqa_group_inputs(np.random.default_rng(40 + G), G)
+    qt, kvt = (torch.from_numpy(x.astype(np.float32)).to(cuda, dtype) for x in (q, kv))
+    lt = torch.from_numpy(lengths).to(cuda)
+    tol = PAGED_TOL[str(dtype).split(".")[1]]
+    for R in (1, 4):
+        before = pa.launches
+        out = pa.paged_attention(qt, kvt, table, lt, pages_per_block=R)
+        torch.cuda.synchronize()
+        assert pa.launches == before + 1
+        plan = pa.upload_plan(table, R, cuda)
+        close(out, pa.paged_attention_plain(qt, kvt, *plan, lt, pages_per_block=R), tol)
+
+
 @pytest.mark.parametrize("R", [1, 2, 4])
 def test_planner_matches_reference(ref, R):
     rng = np.random.default_rng(R)

@@ -3,7 +3,14 @@
 weights, at full width.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/decode_drift.py \\
-        [--arch hymba-1.5b] [--reduced] [--device cpu]
+        [--arch hymba-1.5b] [--reduced] [--device cpu] [--layers N] [--all-experts]
+
+``--layers N`` cuts the depth to N layers at full width (deepseek-v2-lite-16b's
+27 layers do not fit a 96 GiB host twice over); ``--all-experts`` routes every
+token to every expert at capacity 2.0 (top_k = num_experts, as
+tests/test_models.py pins a MoE arch's decode-vs-forward: top-k routing is
+discontinuous, so a rounding difference can move a token to another expert
+between the decode and the forward).
 
 The reference's ``init_stack`` weights (key 0, bf16) go through numpy into
 the port (``from_reference_params``). Each package
@@ -38,7 +45,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
-from repro.configs import get_config, get_reduced  # noqa: E402
+from repro.configs import get_config, get_reduced, replace  # noqa: E402
 from repro.models import decode_step, forward, init_cache, init_stack, prefill  # noqa: E402
 
 from repro_torch.configs import ModelConfig  # noqa: E402
@@ -117,8 +124,15 @@ def main() -> None:
     ap.add_argument("--arch", default="hymba-1.5b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cpu", help="the port's device")
+    ap.add_argument("--layers", type=int, default=None, help="cut the depth to N layers")
+    ap.add_argument("--all-experts", action="store_true",
+                    help="a MoE arch routes every token to every expert (capacity 2.0)")
     args = ap.parse_args()
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if args.layers is not None:
+        cfg = replace(cfg, num_layers=args.layers)
+    if args.all_experts:
+        cfg = replace(cfg, top_k=cfg.num_experts, capacity_factor=2.0)
     t0 = time.perf_counter()
     params, _ = init_stack(jax.random.PRNGKey(0), cfg)      # bf16 weights, as initialised
     prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, PROMPT)).astype(np.int32)
@@ -130,6 +144,7 @@ def main() -> None:
     same = port(model, prompt, args.device, fed=ref["fed"])
     print(json.dumps({
         "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "top_k": cfg.top_k, "capacity_factor": cfg.capacity_factor,
         "dtype": "bfloat16", "batch": 1, "prompt": PROMPT, "greedy_steps": STEPS,
         "jax_platform": jax.devices()[0].platform, "port_device": args.device,
         "max_drift": {"reference": max(ref["drift"]), "port": max(ours["drift"]),
