@@ -124,7 +124,8 @@ Phases, each printing one JSON line:
    state sweep on the FP64 tensor cores) and backward (FP64 tensor cores)
    at mamba2-780m's training shape (B 8, S 512), the backward also at
    hymba-1.5b's N 16 (B 4); the scan's training rows give the bound at 3×TF32
-   and at the FP64 tensor cores they run;
+   and at the FP64 tensor cores they run; the scan's three kernels also at
+   chunks 64 and 128 (phase 25);
 24. steps: ``launch.steps``' step builders on a real 1×1 ``DeviceMesh``
    (``make_local_mesh``, nccl) at full width, random weights from seed 0,
    the reference's dry-run shapes cut to one card (``STEP_RUNS``):
@@ -145,7 +146,29 @@ Phases, each printing one JSON line:
    ``long_500k`` decodes launch no kernel (the SSM state and hymba's ring are
    plain torch in both packages), so there is nothing to swap: their logits
    are held finite and of the vocabulary's width, and ``hybrid_decode`` and
-   ``serve_ssm`` hold the same decode code against a forward.
+   ``serve_ssm`` hold the same decode code against a forward;
+25. optimized: the reference's perf knobs (``repro_torch.configs.optimized``)
+   on the card. qwen2-moe-a2.7b and deepseek-v2-lite-16b at full width and
+   ``train_arch_cfg``'s 4 layers under ``moe`` and ``mla_lat`` alone and
+   under the port's ``optimize(cfg)`` (a variant whose config equals an
+   earlier one's is named with it and not run again), their parameters
+   DTensors on a 1×1 mesh (``make_local_mesh``, nccl) as the sharding rules
+   place them, so that the knobs' own code runs on the card (the shard-local
+   MoE dispatch and its reduction over "model"; MLA's latent scores as a
+   partial sum reduced once): through the step builders a prefill of 64
+   tokens (B 4), 8 decode steps and one train step (S TRAIN_SEQ), the flash
+   and paged launches of each held and the host seconds printed. In f32,
+   each variant's prefill and decode logits at 4 layers, and one train
+   step's loss and gradient norm (``build_train_step``'s metrics) at 2
+   layers, held to the unknobbed run's within 1e-5 (relative), and whether
+   the bits are equal (on one model shard the shard-local dispatch is the
+   global one). Then mamba2-780m at full width under ``ssd_chunk`` (64) and
+   ``ssd_chunk128`` (128): a prefill of 512 tokens and one train step through
+   the step builders, 48 scan forwards (and 48 backwards in training) held;
+   the serving scan at the serving shape against ``ssd_chunked`` (1e-3), the
+   training forward and the backward at ``train_ssm``'s shape against their
+   plain versions (1e-4), each a row of the kernels line (phase 23) with its
+   time, bound and launches.
 
 Each phase's seconds are printed as it ends and gathered in a ``phase_seconds``
 line. The last line is ``{"ok": true, "device": {...}}``. Any failure raises
@@ -331,6 +354,22 @@ SSD_BWD_TOL = 1e-4
 # steps: (arch, the reference's shape, batch on one card, decode steps, the
 # kernel the run must launch, why the shape was cut). Sequence lengths are the
 # reference's; only batches are cut.
+# optimized: the reference's perf knobs on the card. The MoE and MLA archs at
+# train_arch_cfg's depth under each knob of OPT_KNOBS alone and under the
+# port's optimize(cfg), their parameters DTensors on a 1×1 mesh, each through
+# the step builders: a prefill of OPT_RUN's prompt (B, prompt, decode steps),
+# its decode steps and one train step (B 4, S TRAIN_SEQ). In f32 each
+# variant's logits and its train step's loss and gradient norm are held to
+# the unknobbed run's (OPT_TOL, relative): the train step at
+# OPT_F32_TRAIN_LAYERS, since one f32 AdamW step holds 28 bytes a parameter
+# (weights, gradients, clipped gradients, old and new moments), 81 GB at 4
+# layers of qwen2-moe-a2.7b's 2.9 B. On one model shard the shard-local MoE
+# dispatch is the global one and the latent's partial sum is the whole sum,
+# so the knobs' paths compute what base does.
+OPT_KNOBS = ("moe", "mla_lat")
+OPT_RUN = (4, 64, 8)
+OPT_TOL = 1e-5
+OPT_F32_TRAIN_LAYERS = 2
 STEP_RUNS = (
     ("qwen1.5-0.5b", "prefill_32k", 1, 0, "flash_attention",
      "B 32 → 1: one 32768-token prompt's activations and 24 layers' K/V fill a "
@@ -1391,7 +1430,7 @@ def paged_row(q, kv, lengths, plan, live_blocks, launches: int, err: float, case
 def phase_kernels(dev: torch.device, main_err: dict, launches: dict,
                   kv_spill_launches: int, arch_launches: dict, train_launches: dict,
                   grads_launches: dict, ssm_train_launches: dict,
-                  arch_train_launches: dict) -> None:
+                  arch_train_launches: dict, opt_rows: list) -> None:
     cfg = get_config(ARCH)
     gen = torch.Generator(device=dev).manual_seed(1)
     dt = torch.bfloat16
@@ -1506,7 +1545,7 @@ def phase_kernels(dev: torch.device, main_err: dict, launches: dict,
     emit({"kernels": [flash, flash_long, flash_mla, flash_hybrid, flash_long_mla, flash_train,
                       flash_bwd, flash_bwd_heads, flash_bwd_mla, flash_bwd_moe, paged,
                       paged_moe, paged_gqa, paged_long, scan, scan_hybrid, scan_train,
-                      scan_bwd, scan_bwd_hybrid]})
+                      scan_bwd, scan_bwd_hybrid, *opt_rows]})
 
 
 def check_engine_clean(stats: dict, what: str) -> dict:
@@ -2662,6 +2701,327 @@ def phase_steps(smi: str) -> dict:
     return out
 
 
+def opt_variants(cfg) -> dict:
+    """The ``optimized`` phase's configs of ``cfg`` by name: "base" (no knob),
+    each knob of OPT_KNOBS alone and "opt" (the port's ``optimize(cfg)``,
+    DEFAULT_ON), each with the name of the earlier variant whose config it
+    equals (run once, under that name) or None."""
+    from repro_torch.configs.optimized import optimize
+    named = {"base": cfg, **{k: optimize(cfg, only={k}) for k in OPT_KNOBS},
+             "opt": optimize(cfg)}
+    out: dict = {}
+    for name, c in named.items():
+        out[name] = (c, next((n for n, (o, same) in out.items() if same is None and o == c),
+                             None))
+    return out
+
+
+def opt_model(cfg, mesh, f32: bool):
+    """``init_transformer(cfg, seed=0)`` (in f32 with ``f32``) with its
+    parameters DTensors on ``mesh`` by the sharding rules, as the dry run
+    places them: (model, the moments' placements)."""
+    from repro_torch.launch.steps import place_model, shardings
+    from repro_torch.models import init_transformer
+    model = init_transformer(cfg, seed=0, device="cuda")
+    if f32:
+        model = model.float()
+    p_shard, m_shard = shardings(cfg, model, mesh)
+    place_model(model, p_shard, mesh, local=False)
+    return model, m_shard
+
+
+def on_mesh(t: torch.Tensor, mesh):
+    """``t`` as a DTensor on ``mesh``, its batch split as ``batch_spec`` says."""
+    from repro_torch.distributed.sharding import batch_spec, distribute, placements
+    return distribute(t, mesh, placements(batch_spec(mesh, t.shape[0]), mesh))
+
+
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's global value; anything else as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+@contextlib.contextmanager
+def knob_paths():
+    """Within the block, the times each knob's own code ran: {"moe": MoE
+    layers dispatched shard-locally (``_moe_shard_map`` not ``None``),
+    "mla_lat": MLA decode scores reduced as a partial sum}."""
+    from repro_torch.models import mla, moe
+    saved, ran = (moe._moe_shard_map, mla.settle), {"moe": 0, "mla_lat": 0}
+
+    def shard_map(*args):
+        out = saved[0](*args)
+        ran["moe"] += out is not None
+        return out
+
+    def settle(t):
+        ran["mla_lat"] += 1
+        return saved[1](t)
+
+    moe._moe_shard_map, mla.settle = shard_map, settle
+    try:
+        yield ran
+    finally:
+        moe._moe_shard_map, mla.settle = saved
+
+
+def knob_runs_wanted(cfg, steps: int) -> dict:
+    """``knob_paths``' counts for ``opt_serve`` then ``opt_train`` of ``cfg``:
+    the MoE in every layer of the prefill step, the prefill filling the
+    decode cache, each decode step and the train step's forward; MLA's
+    partial sum in every layer of each decode step."""
+    return {"moe": cfg.num_layers * (steps + 3) if cfg.moe_shard_map else 0,
+            "mla_lat": cfg.num_layers * steps if cfg.mla_latent_psum else 0}
+
+
+def opt_serve(model, mesh, cfg, tokens, run) -> tuple[list, dict, dict]:
+    """``build_prefill_step`` over tokens[:, :prompt], then OPT_RUN's decode
+    steps through ``build_decode_step`` on a cache of prompt + steps filled by
+    the same prefill, every input a DTensor on ``mesh``: (the prefill's and
+    every step's logits, launches of the prefill step and of the decode
+    steps, host seconds of each)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.steps import (_inputs, build_decode_step, build_prefill_step,
+                                          dtensor_mode)
+    B, prompt, steps = OPT_RUN
+    prefill, _, _ = build_prefill_step(cfg, ShapeConfig("p", prompt, B, "prefill"), run, mesh)
+    decode, _, _ = build_decode_step(cfg, ShapeConfig("d", prompt + steps, B, "decode"), mesh)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = [prefill(model, {"tokens": on_mesh(tokens[:, :prompt], mesh)})[0]]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = {"prefill": read_launches()}
+    with torch.no_grad(), dtensor_mode(model):
+        cache = model.init_cache(B, prompt + steps)
+        model.prefill(*_inputs(model, on_mesh(tokens[:, :prompt], mesh)), cache)
+    reset_launches()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for i in range(steps):
+        logits.append(decode(model, cache, on_mesh(tokens[:, prompt + i], mesh),
+                             np.full(B, prompt + i))[0])
+    torch.cuda.synchronize()
+    launches["decode"] = read_launches()
+    del cache
+    return ([whole(x) for x in logits], launches,
+            {"prefill_s": t1 - t0, "decode_s": time.perf_counter() - t2})
+
+
+def opt_train(model, m_shard, mesh, cfg, run, t_tok, t_tgt) -> tuple[dict, dict, float]:
+    """One ``build_train_step`` step of ``model`` (parameters on ``mesh``,
+    moments placed by ``m_shard``) on DTensor inputs: ({"loss", "grad_norm"}
+    as floats, launches, host seconds)."""
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import adamw
+    model.requires_grad_(True)
+    opt = adamw.init(dict(model.named_parameters()), run, shardings=m_shard, mesh=mesh)
+    train = build_train_step(cfg, run, mesh)
+    batch = {"tokens": on_mesh(t_tok, mesh), "targets": on_mesh(t_tgt, mesh)}
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt, metrics = train(model, opt, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    model.requires_grad_(False)
+    del opt
+    return ({k: float(whole(metrics[k])) for k in ("loss", "grad_norm")}, launches, seconds)
+
+
+def opt_hold(runs: dict, mesh, run, tokens, t_tok, t_tgt) -> dict:
+    """Every variant of ``runs`` ({name: config}, "base" first) against base
+    in f32 on ``mesh``: the serving logits of ``opt_serve`` at the configs'
+    depth, one ``build_train_step`` step's loss and gradient norm at
+    OPT_F32_TRAIN_LAYERS, each variant's train step on fresh weights from
+    the same seed. Raises past OPT_TOL (relative); returns {name: the
+    errors and whether every bit is equal}."""
+    from repro_torch.configs import replace
+    m32, _ = opt_model(runs["base"], mesh, f32=True)
+    logits = {}
+    for name, cfg in runs.items():
+        set_cfg(m32, cfg)
+        logits[name] = opt_serve(m32, mesh, cfg, tokens, run)[0]
+    del m32
+    torch.cuda.empty_cache()
+    terms = {}
+    for name, cfg in runs.items():
+        cfg = replace(cfg, num_layers=OPT_F32_TRAIN_LAYERS)
+        m32, m_shard = opt_model(cfg, mesh, f32=True)
+        terms[name] = opt_train(m32, m_shard, mesh, cfg, run, t_tok, t_tgt)[0]
+        del m32, m_shard
+        torch.cuda.empty_cache()
+    held = {}
+    for name in runs:
+        if name == "base":
+            continue
+        errs = {"logits_rel_err": max(rel_err(r, g) for r, g in zip(logits["base"],
+                                                                      logits[name]))}
+        errs.update({f"{k}_rel_err": abs(terms[name][k] - v) / abs(v)
+                     for k, v in terms["base"].items()})
+        if not all(e < OPT_TOL for e in errs.values()):
+            raise AssertionError(f"optimized {runs[name].name} {name}: f32 off base by "
+                                 f"{errs} (held at {OPT_TOL})")
+        held[name] = {**errs, "bits_equal": terms[name] == terms["base"] and all(
+            torch.equal(r, g) for r, g in zip(logits["base"], logits[name]))}
+    return held
+
+
+def phase_optimized(smi: str) -> dict:
+    """The reference's perf knobs (``repro_torch.configs.optimized``) on the card
+    (module docstring, phase 25). Returns {"launches": {run: launches},
+    "rows": the scan's rows at the knobs' chunks for the kernels line}."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.configs.optimized import DEFAULT_ON
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.mesh import close_mesh, make_local_mesh
+    mesh = make_local_mesh(1, 1)
+    run = RunConfig(remat="none")
+    launches, out_rows = {}, []
+    B, prompt, steps = OPT_RUN
+    try:
+        for arch in (MOE_ARCH, MLA_ARCH):
+            base = train_arch_cfg(arch)
+            variants = opt_variants(base)
+            runs = {name: cfg for name, (cfg, same) in variants.items() if same is None}
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            tokens = torch.randint(0, base.vocab_size, (B, prompt + steps), generator=gen,
+                                   device="cuda")
+            data = SyntheticTokens(DataConfig(base.vocab_size, TRAIN_SEQ, B, seed=0))
+            t_tok, t_tgt = train_inputs(base, data.batch_at(0))
+            held = opt_hold(runs, mesh, run, tokens, t_tok, t_tgt)
+            # the bf16 runs: prefill, decode steps and one train step a variant
+            model, m_shard = opt_model(base, mesh, f32=False)
+            for name, cfg in runs.items():
+                set_cfg(model, cfg)
+                with knob_paths() as ran:
+                    logits, serve_launches, secs = opt_serve(model, mesh, cfg, tokens, run)
+                    metrics, train_launches, secs["train_step_s"] = opt_train(
+                        model, m_shard, mesh, cfg, run, t_tok, t_tgt)
+                if ran != knob_runs_wanted(cfg, steps):
+                    raise AssertionError(f"optimized {arch} {name}: the knobs' code ran {ran}, "
+                                         f"want {knob_runs_wanted(cfg, steps)}")
+                none = dict.fromkeys(LAUNCH_COUNTERS, 0)
+                want = {"prefill": {**none, "flash_attention": cfg.num_layers},
+                        "decode": {**none, "paged_attention": 0 if cfg.attention == "mla"
+                                   else cfg.num_layers * steps}}
+                if serve_launches != want or not all(torch.isfinite(x).all() for x in logits):
+                    raise AssertionError(f"optimized {arch} {name}: serving launches "
+                                         f"{serve_launches}, want {want}, or logits not finite")
+                hold_train_launches(f"optimized {arch} {name}", train_launches, 1, 1, cfg)
+                if not np.isfinite(metrics["loss"]):
+                    raise AssertionError(f"optimized {arch} {name}: loss not finite")
+                torch.cuda.empty_cache()
+                launches[(arch, name)] = {"serve": serve_launches, "train": train_launches}
+                also = [n for n, (_, same) in variants.items() if same == name]
+                print(f"optimized {arch} ({cfg.num_layers} layers) {name}"
+                      + (f" (= {', '.join(also)})" if also else "")
+                      + f": prefill {secs['prefill_s']:.6f} s, {steps} decode steps "
+                      f"{secs['decode_s']:.6f} s, train step {secs['train_step_s']:.6f} s "
+                      f"(first: cuBLAS, allocator); launches {serve_launches} then "
+                      f"{train_launches}; the knobs' code ran {ran}; f32 hold "
+                      f"{held.get(name, 'base')} [{smi}]")
+                emit({"phase": "optimized", "arch": arch, "variant": name, "also_for": also,
+                      "layers": cfg.num_layers, "moe_shard_map": cfg.moe_shard_map,
+                      "mla_latent_psum": cfg.mla_latent_psum, "default_on": sorted(DEFAULT_ON),
+                      "batch": B, "prompt": prompt, "decode_steps": steps,
+                      "train_seq": TRAIN_SEQ, **secs, "train_loss": metrics["loss"],
+                      "serve_launches": serve_launches, "train_launches": train_launches,
+                      "knob_code_ran": ran, "f32_hold": held.get(name),
+                      "f32_train_layers": OPT_F32_TRAIN_LAYERS, "held_at": OPT_TOL,
+                      "card": smi})
+            del model, m_shard
+            torch.cuda.empty_cache()
+        out_rows = opt_scan(smi, mesh, run, launches)
+    finally:
+        close_mesh()
+        torch.cuda.empty_cache()
+    return {"launches": launches, "rows": out_rows}
+
+
+def opt_scan(smi: str, mesh, run, launches: dict) -> list:
+    """mamba2-780m at full width under ``ssd_chunk`` (64) and ``ssd_chunk128``
+    (128): a prefill of SSM_PROMPT tokens (B BATCH) and one train step (B
+    TRAIN_BATCH, S TRAIN_SEQ) through the step builders, launches reset
+    before and held after; then the scan's three kernels at those chunks
+    against their plain versions, as rows of the kernels line."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.configs.optimized import optimize
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.steps import build_prefill_step, build_train_step
+    from repro_torch.models import init_transformer
+    from repro_torch.optim import adamw
+    base = get_config(SSM_ARCH)
+    model = init_transformer(base, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, base.vocab_size, (BATCH, SSM_PROMPT), generator=gen, device="cuda")
+    data = SyntheticTokens(DataConfig(base.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    t_tok, t_tgt = train_inputs(base, data.batch_at(0))
+    rows, L = [], base.num_layers
+    for knob in ("ssd_chunk", "ssd_chunk128"):
+        cfg = optimize(base, only={knob})
+        set_cfg(model, cfg)
+        prefill, _, _ = build_prefill_step(cfg, ShapeConfig("p", SSM_PROMPT, BATCH, "prefill"),
+                                           run, mesh)
+        reset_launches()
+        with torch.no_grad():
+            logits, _ = prefill(model, {"tokens": tokens})
+        torch.cuda.synchronize()
+        serve_launches = read_launches()
+        model.requires_grad_(True)
+        opt = adamw.init(dict(model.named_parameters()), run)
+        reset_launches()
+        t0 = time.perf_counter()
+        opt, metrics = build_train_step(cfg, run, mesh)(model, opt, {"tokens": t_tok,
+                                                                      "targets": t_tgt})
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        train_launches = read_launches()
+        model.requires_grad_(False)
+        del opt
+        want_serve = {"flash_attention": 0, "flash_attention_bwd": 0, "paged_attention": 0,
+                      "ssd_scan": L, "ssd_scan_bwd": 0}
+        if serve_launches != want_serve or not torch.isfinite(logits).all():
+            raise AssertionError(f"optimized {SSM_ARCH} {knob}: prefill launches "
+                                 f"{serve_launches}, want {want_serve}, or logits not finite")
+        hold_train_launches(f"optimized {SSM_ARCH} {knob}", train_launches, 1, 1, cfg)
+        if not torch.isfinite(metrics["loss"]):
+            raise AssertionError(f"optimized {SSM_ARCH} {knob}: loss not finite")
+        launches[(SSM_ARCH, knob)] = {"serve": serve_launches, "train": train_launches}
+        torch.cuda.empty_cache()
+        K, m = cfg.ssm_chunk, cfg
+        serving = ssd_serving_shape()[:5] + (K,)
+        x, Bm, Cm, dt, A = ssd_inputs(torch.device("cuda"), gen, *serving[:5], model_like=True)
+        y, h = ssd.ssd_scan_op(x, Bm, Cm, dt, A, chunk=K, return_state=True)
+        y_plain, h_plain = ssd_chunked(x, Bm, Cm, dt, A, chunk=K)
+        err = max(max_err(y, y_plain, SSD_SERVING_TOL, f"optimized scan chunk {K} y"),
+                  max_err(h, h_plain, SSD_SERVING_TOL, f"optimized scan chunk {K} h_final"))
+        del x, Bm, Cm, dt, A, y, h, y_plain, h_plain
+        train_shape = (TRAIN_BATCH, TRAIN_SEQ, m.ssm_heads, m.ssm_head_dim, m.ssm_state, K)
+        rows += [
+            scan_row(torch.device("cuda"), gen, serving, serve_launches["ssd_scan"], err,
+                     f"{knob}: {SSM_ARCH} prefill at chunk {K}"),
+            scan_row(torch.device("cuda"), gen, train_shape, train_launches["ssd_scan"], None,
+                     f"{knob}: {SSM_ARCH} training forward at chunk {K}", training=True),
+            scan_bwd_row(torch.device("cuda"), gen, train_shape, train_launches["ssd_scan_bwd"],
+                         f"{knob}: {SSM_ARCH} backward at chunk {K}")]
+        print(f"optimized {SSM_ARCH} {knob} (chunk {K}): prefill launches {serve_launches}, "
+              f"train step {step_s:.6f} s (first), launches {train_launches}; kernels "
+              + ", ".join(f"{r['name']} {r['ms']:.6f} ms (bound {r['bound_ms']:.6f})"
+                          for r in rows[-3:]) + f" [{smi}]")
+        emit({"phase": "optimized", "arch": SSM_ARCH, "variant": knob, "chunk": K,
+              "prefill_launches": serve_launches, "train_launches": train_launches,
+              "train_step_s": step_s, "serving_scan_err": err,
+              "held_at": {"serving": SSD_SERVING_TOL, "training": SSD_TOL,
+                          "backward": SSD_BWD_TOL}, "card": smi})
+        del logits, metrics
+    del model
+    torch.cuda.empty_cache()
+    return rows
+
+
 PHASE_SECONDS: dict = {}
 
 
@@ -2709,9 +3069,10 @@ def main() -> None:
     timed("moe_repeat", phase_moe_repeat)
     timed("train_resume", phase_train_resume)
     timed("steps", phase_steps, smi)
+    opt = timed("optimized", phase_optimized, smi)
     timed("kernels", phase_kernels, dev, main_err, launches, kv_spill_launches,
           arch_launches, train_launches, grads_launches, ssm_train_launches,
-          arch_train_launches)
+          arch_train_launches, opt["rows"])
     emit({"phase_seconds": PHASE_SECONDS, "total_s": time.perf_counter() - t_start})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,13 @@ and a mesh axis shards at most one dim of a leaf.
 (an axis name, a tuple of names, or ``None`` per dim, trailing ``None``s
 dropped); ``placements`` turns one into DTensor placements, one ``Shard`` or
 ``Replicate`` per mesh dim. ``on_local_shards`` is where a DTensor computation
-meets a kernel: the kernel wrappers take plain tensors only.
+meets a kernel: the kernel wrappers take plain tensors only. A mixer that
+computes this device's term of a sum returns it as a ``Partial`` DTensor and
+reduces it once with ``settle``: written in DTensor ops, DTensor makes the
+``Partial`` (MLA's latent scores, ``models/mla.py``); laid out by hand on the
+local shards, each input comes from ``to_local(grad_placements=...)`` and the
+output goes back through ``DTensor.from_local`` (the MoE's shard-local
+dispatch, ``models/moe.py``).
 
 A DTensor step is one program on every rank: each rank plans and caches its
 own sequences (``Shards.rows``), an input replicated over a mesh dim that a

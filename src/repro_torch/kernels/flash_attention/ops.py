@@ -39,23 +39,36 @@ bwd_launches = 0                    # backward kernel calls since the last reset
 
 
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                       causal: bool = True,
-                       window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, Sq, H, D); k, v: (B, Skv, Kh, D). Returns (B, Sq, H, D)."""
+                       causal: bool = True, window: Optional[int] = None,
+                       q_block: int = 512, kv_block: int = 512, bf16_compute: bool = False,
+                       swa_sliced_kv: bool = False) -> torch.Tensor:
+    """q: (B, Sq, H, D); k, v: (B, Skv, Kh, D). Returns (B, Sq, H, D).
+
+    ``q_block``, ``kv_block``, ``bf16_compute`` and ``swa_sliced_kv`` are the
+    plain version's (the config's ``blocks``, ``flash_bf16`` and ``swa``
+    knobs, ``flash_attention_online``). The kernel computes the same function
+    with its own Hopper tiles, skips the blocks left of a window, and on its
+    bf16 path always rounds P to bf16 before P·V, as ``flash_bf16`` does."""
     refuse_dtensor("flash_attention", q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"window must be ≥ 1 or None, got {window}")
+    plain = (q_block, kv_block, bf16_compute, swa_sliced_kv)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttention.apply(q, k, v, causal, window)
-    return _forward(q, k, v, causal, window, False)
+        return FlashAttention.apply(q, k, v, causal, window, plain)
+    return _forward(q, k, v, causal, window, False, plain)
 
 
-def _forward(q, k, v, causal: bool, window: Optional[int], with_lse: bool):
+def _forward(q, k, v, causal: bool, window: Optional[int], with_lse: bool, plain: tuple):
     """out, or (out, LSE (B, H, Sq) f32) ``with_lse``: the plain version on
-    the CPU, the custom op's shapes on meta, else the kernel."""
+    the CPU (tiles and rounding ``plain``), the custom op's shapes on meta,
+    else the kernel."""
     if q.device.type == "cpu":
+        q_block, kv_block, bf16_compute, swa_sliced_kv = plain
         return flash_attention_online(q, k, v, causal=causal, window=window,
-                                      q_offset=k.shape[1] - q.shape[1], return_lse=with_lse)
+                                      q_block=q_block, kv_block=kv_block,
+                                      q_offset=k.shape[1] - q.shape[1],
+                                      bf16_compute=bf16_compute, swa_sliced_kv=swa_sliced_kv,
+                                      return_lse=with_lse)
     if q.device.type == "meta":
         out, lse = torch.ops.repro_torch.flash_attention(q, k, v, causal, window or 0,
                                                          with_lse)
@@ -68,8 +81,8 @@ class FlashAttention(torch.autograd.Function):
     the CPU), from q, k, v, the output and the forward's LSE."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
-        out, lse = _forward(q, k, v, causal, window, True)
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int], plain: tuple):
+        out, lse = _forward(q, k, v, causal, window, True, plain)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
@@ -87,7 +100,7 @@ class FlashAttention(torch.autograd.Function):
                 q, k, v, out, lse, dout, ctx.causal, ctx.window or 0)
         else:
             dq, dk, dv = _launch_bwd(q, k, v, out, lse, dout, ctx.causal, ctx.window)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 # ---------------------------------------------------------------------------

@@ -3,10 +3,14 @@
 ``attention_ref`` is the twin of the reference's
 ``kernels/flash_attention/ref.py`` (one masked softmax over all keys).
 ``flash_attention_online`` is the twin of ``models/attention.py``'s
-``flash_attention_jnp`` without its sliced sliding-window branch: the
-same block-by-block online softmax that the CUDA kernel runs; with
-``return_lse`` it also returns what the backward needs, each query row's
-log-sum-exp. ``flash_attention_bwd_ref`` is the backward kernel's plain
+``flash_attention_jnp``: the same block-by-block online softmax that the
+CUDA kernel runs, over the reference's tiles (``q_block``/``kv_block``, the
+``blocks`` knob); with ``bf16_compute`` (``flash_bf16``) its products read
+their operands in q's dtype and accumulate in f32, P rounded to that dtype
+before P·V; with ``swa_sliced_kv`` (``swa``) a sliding window reads a fixed
+slice of ``window + q_block`` keys a query block (``_flash_swa_sliced``, the
+reference's twin). With ``return_lse`` it also returns what the backward
+needs, each query row's log-sum-exp. ``flash_attention_bwd_ref`` is the backward kernel's plain
 version: the explicit gradient from q, k, v, o and that LSE.
 
 q: (B, Sq, H, D); k, v: (B, Skv, Kh, D). Causal + optional sliding window.
@@ -52,22 +56,28 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_online(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, causal: bool = True, window: Optional[int] = None,
                            q_block: int = 512, kv_block: int = 512,
-                           q_offset: int = 0, return_lse: bool = False
+                           q_offset: int = 0, bf16_compute: bool = False,
+                           swa_sliced_kv: bool = False, return_lse: bool = False
                            ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Online-softmax attention over (q_block × kv_block) tiles, f32 inside.
 
     ``q_offset`` positions q token i at ``q_offset + i`` against kv. With
     ``return_lse`` also returns the LSE, (B, H, Sq) f32: the natural log of
     Σ exp(scale·s) over the row's unmasked keys, as ``m + log(max(l, 1e-30))``
-    of the online softmax (the output's own normaliser).
+    of the online softmax (the output's own normaliser). ``bf16_compute``
+    and ``swa_sliced_kv`` as the reference's (module docstring).
     """
     B, Sq, H, D = q.shape
     _, Skv, Kh, _ = k.shape
+    if window is not None and swa_sliced_kv and Skv > window + q_block:
+        return _flash_swa_sliced(q, k, v, window=window, q_block=q_block, q_offset=q_offset,
+                                 bf16_compute=bf16_compute, return_lse=return_lse)
     G = H // Kh
     scale = D ** -0.5
+    op = _operand(q, bf16_compute)
     q_block, kv_block = min(q_block, Sq), min(kv_block, Skv)
-    qh = q.float().reshape(B, Sq, Kh, G, D)
-    kf, vf = k.float(), v.float()
+    qh = op(q).reshape(B, Sq, Kh, G, D)
+    kf, vf = op(k), op(v)
     out = torch.empty((B, Sq, Kh, G, D), dtype=torch.float32, device=q.device)
     lse = torch.empty((B, Kh, G, Sq), dtype=torch.float32, device=q.device)
     mask = _mask(Sq, Skv, causal, window, q_offset, q.device)
@@ -84,11 +94,60 @@ def flash_attention_online(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum("bkgqt,btkd->bkgqd", p, vc)
+            acc = acc * corr[..., None] + torch.einsum("bkgqt,btkd->bkgqd", op(p), vc)
             m = m_new
         res = acc / l.clamp(min=1e-30)[..., None]                # (B, Kh, G, qb, D)
         out[:, q0:q0 + q_block] = res.permute(0, 3, 1, 2, 4)
         lse[..., q0:q0 + q_block] = m + torch.log(l.clamp(min=1e-30))
+    out = out.reshape(B, Sq, H, D).to(q.dtype)
+    if return_lse:
+        return out, lse.reshape(B, H, Sq)
+    return out
+
+
+def _operand(q: torch.Tensor, bf16_compute: bool):
+    """A product's operand as the reference reads it: rounded to q's dtype
+    under ``bf16_compute``, else f32; then widened to f32, so each product
+    of two such operands is exact and the sums run in f32 (the reference's
+    ``preferred_element_type=jnp.float32``)."""
+    dtype = q.dtype if bf16_compute else torch.float32
+    return lambda t: t.to(dtype).float()
+
+
+def _flash_swa_sliced(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window: int,
+                      q_block: int, q_offset: int, bf16_compute: bool, return_lse: bool):
+    """Sliding-window attention with a fixed slice of keys a query block: the
+    twin of the reference's ``_flash_swa_sliced``. Query block i attends to
+    keys [i·q_block − window, (i + 1)·q_block) (the keys padded on the left
+    by ``window``), masked causally and to the window; one softmax a block."""
+    B, Sq, H, D = q.shape
+    _, Skv, Kh, _ = k.shape
+    G = H // Kh
+    scale = D ** -0.5
+    op = _operand(q, bf16_compute)
+    q_block = min(q_block, Sq)
+    if Sq % q_block:
+        raise ValueError(f"the sliced sliding-window path needs q_block | Sq "
+                         f"({q_block}, {Sq})")
+    span = window + q_block
+    pad = (0, 0, 0, 0, window, 0)
+    kp, vp = op(torch.nn.functional.pad(k, pad)), op(torch.nn.functional.pad(v, pad))
+    qh = op(q).reshape(B, Sq, Kh, G, D)
+    out = torch.empty((B, Sq, Kh, G, D), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, Kh, G, Sq), dtype=torch.float32, device=q.device)
+    for q0 in range(0, Sq, q_block):
+        ks, vs = kp[:, q0:q0 + span], vp[:, q0:q0 + span]
+        q_pos = q_offset + q0 + torch.arange(q_block, device=q.device)[:, None]
+        kv_pos = q0 - window + torch.arange(span, device=q.device)[None, :]
+        mask = (kv_pos >= 0) & (kv_pos <= q_pos) & (kv_pos > q_pos - window)
+        s = torch.einsum("bqkgd,btkd->bkgqt", qh[:, q0:q0 + q_block], ks) * scale
+        s = torch.where(mask, s, NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(-1)
+        res = torch.einsum("bkgqt,btkd->bkgqd", op(p), vs) / l.clamp(min=1e-30)[..., None]
+        out[:, q0:q0 + q_block] = res.permute(0, 3, 1, 2, 4)
+        lse[..., q0:q0 + q_block] = m[..., 0] + torch.log(l.clamp(min=1e-30))
     out = out.reshape(B, Sq, H, D).to(q.dtype)
     if return_lse:
         return out, lse.reshape(B, H, Sq)

@@ -11,12 +11,18 @@ the H100's constants (``roofline.analysis``). ``train_4k`` runs forward,
 backward and AdamW, so the two backward kernels count through their meta
 paths.
 
-Not ported: ``--opt``/``--knobs`` (``configs/optimized.py``'s knobs were
-confirmed on the TPU and have no twin) and ``--hlo-dir`` (there is no HLO).
+``--opt`` applies the port's ``configs.optimized.DEFAULT_ON`` and
+``--knobs a,b`` the knobs named (``configs.optimized.KNOBS``), as the
+reference's do; their rows carry the variant "opt" in the key (or
+``--variant``'s label), beside the "base" rows of a run without knobs, and
+``roofline.report.variant_compare`` prints them side by side. Not ported:
+``--hlo-dir`` (there is no HLO).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2.5-32b --shape train_4k --mesh single
   python -m repro_torch.launch.dryrun --all --mesh both --out results/dryrun_torch.json
+  python -m repro_torch.launch.dryrun --arch deepseek-v2-lite-16b --knobs moe --variant moe
+  python -m repro_torch.launch.dryrun --all --opt
 """
 
 from __future__ import annotations
@@ -87,8 +93,14 @@ def roofline_of(cfg: ModelConfig, shape: ShapeConfig, run: RunConfig, mesh=None,
                    compile_seconds=time.perf_counter() - t0)
 
 
-def run_cell(arch: str, shape_name: str, mesh_kind: str, run: RunConfig) -> dict:
+def run_cell(arch: str, shape_name: str, mesh_kind: str, run: RunConfig,
+             knobs=None) -> dict:
+    """One cell's row; ``knobs`` a set of ``configs.optimized.KNOBS`` (an empty
+    set: ``DEFAULT_ON``, as ``--opt``), None for the config as it is."""
     cfg = get_config(arch)
+    if knobs is not None:
+        from repro_torch.configs.optimized import optimize
+        cfg = optimize(cfg, only=knobs if knobs else None)
     shape = SHAPES[shape_name]
     ok, why = cell_supported(cfg, shape)
     if not ok:
@@ -115,6 +127,10 @@ def main(argv=None) -> None:
     ap.add_argument("--out", default="results/dryrun_torch.json")
     ap.add_argument("--remat", default="full")
     ap.add_argument("--skip-existing", action="store_true")
+    ap.add_argument("--opt", action="store_true",
+                    help="apply the port's DEFAULT_ON knobs (configs.optimized)")
+    ap.add_argument("--knobs", default=None,
+                    help="comma list of individual knobs (see optimized.KNOBS)")
     ap.add_argument("--variant", default=None, help="label for this run's result keys")
     args = ap.parse_args(argv)
 
@@ -122,7 +138,12 @@ def main(argv=None) -> None:
     shapes = list(SHAPES) if (args.all or args.shape is None) else [args.shape]
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
     run = RunConfig(remat=args.remat)
-    variant = args.variant or "base"
+    knobs = None
+    if args.opt:
+        knobs = set()
+    if args.knobs is not None:
+        knobs = set(k for k in args.knobs.split(",") if k)
+    variant = args.variant or ("opt" if knobs is not None else "base")
 
     out_path = Path(args.out)
     out_path.parent.mkdir(parents=True, exist_ok=True)
@@ -139,7 +160,7 @@ def main(argv=None) -> None:
                     if args.skip_existing and key in results and \
                             results[key].get("status") in ("ok", "skipped"):
                         continue
-                    r = run_cell(arch, shape_name, mesh_kind, run)
+                    r = run_cell(arch, shape_name, mesh_kind, run, knobs=knobs)
                     r["key"] = list(key)
                     r["variant"] = variant
                     r["remat"] = args.remat

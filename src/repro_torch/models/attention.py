@@ -10,6 +10,16 @@ CPU tensors both run their plain versions. The reference's windowed decode
 reads its ring buffer with plain products, not a kernel, and so does the
 port's ``RingKVCache`` (the paged kernel has no window mask).
 
+The reference's attention knobs (``configs/optimized.py``) reach the plain
+version only: ``attn_q_block``/``attn_kv_block`` (``blocks``) set its tiles,
+``flash_bf16`` its operand dtype and P's rounding, ``swa_sliced_kv`` (``swa``)
+its fixed key slice a query block. On a CUDA tensor the kernel launches as
+it does without them, and computes the same function: it already skips the
+key blocks left of a window (``swa``'s effect), its tiles are its own Hopper
+design (``blocks`` sets only the plain version's), and its bf16 path always
+rounds P to bf16 before P·V (``flash_bf16``'s rounding, whatever the knob
+says).
+
 A decode cache offers ``prompt_plan``/``write_prompt`` (prefill stores
 the prompt's entries), ``plan_step`` (one step's indices on the device,
 shared by every layer) and, for K/V caches, ``attend`` (store this step's
@@ -77,7 +87,10 @@ def attention_train(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     q, k, v = qkv_proj(p, x, cfg, positions)
     B, S = x.shape[:2]
     out = on_local_shards(
-        lambda q, k, v: flash_attention_op(q, k, v, causal=True, window=cfg.window),
+        lambda q, k, v: flash_attention_op(
+            q, k, v, causal=True, window=cfg.window, q_block=cfg.attn_q_block,
+            kv_block=cfg.attn_kv_block, bf16_compute=cfg.flash_bf16,
+            swa_sliced_kv=cfg.swa_sliced_kv),
         (q, k, v), ((0, 2),) * 3, ((0, 2),), batch=B, heads=(cfg.num_heads, cfg.num_kv_heads))
     return flatten(out, 2, 3) @ p.wo, k, v
 

@@ -8,7 +8,10 @@ latent to per-head keys and values and runs ``flash_attention_op`` at head
 dim ``qk_nope + qk_rope`` (192 at full width), with V padded up to that
 width and sliced back after, as the reference does. Decode attends in the
 latent space with W_kb absorbed into the query, in f32: plain products in
-the reference and here (no Pallas kernel there).
+the reference and here (no Pallas kernel there). Under ``mla_latent_psum``
+(the ``mla_lat`` knob, ``configs/optimized.py``) a step on a mesh places the
+absorbed query's latent axis on "model" as the cache's shards are, so the
+scores are a partial sum reduced once, as the reference's decode does.
 """
 
 from __future__ import annotations
@@ -20,8 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import (Shards, flatten, keep_grad_sharded, on_local_shards,
-                                    split_last)
+from ..distributed.sharding import (Shards, flatten, is_dtensor, keep_grad_sharded,
+                                    on_local_shards, settle, split_last)
 from ..kernels.flash_attention.ops import flash_attention_op
 from .attention import NEG_INF, SlotCache, SlotPlan
 from .layers import apply_rope, rms_norm, weight
@@ -66,11 +69,13 @@ def mla_train(p: MLA, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
     v = split_last(keep_grad_sharded(c_kv @ p.wv_b), H, dv)
     q = torch.cat([q_nope, q_pe], dim=-1)
     k = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, H, dr)], dim=-1)
-    # pad v's head dim up to the qk dim for the shared flash path, slice after
-    v_p = F.pad(v, (0, dn + dr - dv))
-    out = on_local_shards(lambda q, k, v: flash_attention_op(q, k, v, causal=True),
-                          (q, k, v_p), ((0, 2),) * 3, ((0, 2),), batch=B,
-                          heads=(H,))[..., :dv]
+    # pad v's head dim up to the qk dim for the shared flash path, slice after;
+    # both on the local shards (torch 2.11's DTensor gives constant_pad_nd's
+    # gradient a placement for one mesh dim on a 2-D mesh)
+    out = on_local_shards(
+        lambda q, k, v: flash_attention_op(q, k, F.pad(v, (0, dn + dr - dv)),
+                                           causal=True)[..., :dv],
+        (q, k, v), ((0, 2),) * 3, ((0, 2),), batch=B, heads=(H,))
     return flatten(out, 2, 3) @ p.wo, c_kv, k_pe
 
 
@@ -120,7 +125,13 @@ def mla_decode(p: MLA, x: torch.Tensor, cfg: ModelConfig, cache: LatentCache,
     wk_b = split_last(p.wk_b, H, dn).float()
     wv_b = split_last(p.wv_b, H, dv).float()
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), wk_b)    # absorb W_kb
-    s = torch.einsum("bhr,bsr->bhs", q_lat, c_kv)
+    if cfg.mla_latent_psum and is_dtensor(c_kv):
+        # q_lat's R on "model" like the cache's shards: the scores are a
+        # partial sum over R, reduced once as (B, H, S), not a gathered cache
+        q_lat = q_lat.redistribute(c_kv.device_mesh, c_kv.placements)
+        s = settle(torch.einsum("bhr,bsr->bhs", q_lat, c_kv))
+    else:
+        s = torch.einsum("bhr,bsr->bhs", q_lat, c_kv)
     s = s + torch.einsum("bhd,bsd->bhs", q_pe[:, 0].float(), k_pe)
     s = s * (dn + dr) ** -0.5
     s = torch.where(valid[:, None, :], s, NEG_INF)

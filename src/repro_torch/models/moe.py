@@ -17,28 +17,39 @@ for a dropped pair) are gathered and summed over k in order, and the
 buffers' gradient gathers back by the same maps (``_Dispatch``,
 ``_Combine``): the values are the same sums.
 
-The reference's ``_moe_shard_map`` (shard-local dispatch over a device
-mesh) becomes this single-device dispatch: ``cfg.moe_shard_map`` is a
-config field the port keeps so configs compare equal, and ignores. The
-expert products are plain batched products in the reference too, outside
-any Pallas kernel, so here they stay torch products. Every step stays on
-the device: no host sync. In a step on a mesh (DTensors) the layer's
-tokens are replicated onto every device first, so the routing, and with it
-the sort, slots and aux counts (plain tensors), is the global one, as the
+``cfg.moe_shard_map`` (the ``moe`` knob, ``configs/optimized.py``) is the
+reference's shard-local dispatch, ``_moe_shard_map``. On a mesh with a
+"model" axis each (pod, data) shard routes only its own tokens, over all E
+experts with the full router, keeps the pairs whose expert lies on its model
+shard (EP: E / model experts a shard, where E divides the axis under the
+config's rules, deepseek) or runs every expert on its slice of ``moe_d_ff``
+(TP, qwen2-moe), with capacity from its own token count, adds the shared
+experts on their ``ffn`` shard, and sums over "model" once: one all-reduce
+of (T_local, M) in f32 where the global dispatch replicates every token onto
+every device. Where the reference's returns ``None`` (no DTensor, no "model"
+axis, neither layout divides) the global dispatch runs. The expert products
+are plain batched products in the reference too, outside any Pallas kernel,
+so here they stay torch products. Every step stays on the device: no host
+sync. Without the knob, in a step on a mesh (DTensors) the layer's tokens
+are replicated onto every device first, so the routing, and with it the
+sort, slots and aux counts (plain tensors), is the global one, as the
 reference's default dispatch is; the expert products split as the expert
 weights are sharded.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from types import SimpleNamespace
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import flatten, is_dtensor, reshape_replicated, split_rows
+from ..distributed.sharding import (flatten, is_dtensor, mesh_shape, reshape_replicated,
+                                    settle, split_rows)
 from .layers import swiglu, weight
 
 
@@ -114,22 +125,23 @@ def _gather_sum(rows: torch.Tensor, slot_map: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _slots(expert_idx: torch.Tensor, E: int, C: int):
-    """Sort-based slots of the (token, expert) pairs of ``expert_idx`` (T, K)
-    in E buffers of C rows: (order, the stable sort of the pairs by expert;
-    valid, each sorted pair kept; slot, its row, E·C (the trash row) when
-    dropped; src (E·C,), each row's token; occupied (E·C,); slot_map (T, K),
-    pair t·K + k's row, E·C when dropped)."""
-    T, K = expert_idx.shape
-    dev = expert_idx.device
-    flat_e = expert_idx.reshape(-1)
+def _slots(local_e: torch.Tensor, E: int, C: int):
+    """Sort-based slots of the (token, expert) pairs of ``local_e`` (T, K) in E
+    buffers of C rows; an id of E marks a pair whose expert lies outside this
+    slice (sorted last, never kept). Returns (order, the stable sort of the
+    pairs by expert; valid, each sorted pair kept; slot, its row, E·C (the
+    trash row) when dropped; src (E·C,), each row's token; occupied (E·C,);
+    slot_map (T, K), pair t·K + k's row, E·C when dropped)."""
+    T, K = local_e.shape
+    dev = local_e.device
+    flat_e = local_e.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    counts = torch.zeros(E, dtype=torch.long, device=dev).index_add_(
+    counts = torch.zeros(E + 1, dtype=torch.long, device=dev).index_add_(
         0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(T * K, device=dev) - starts[sorted_e]
-    valid = rank < C
+    valid = (rank < C) & (sorted_e < E)
     slot = torch.where(valid, sorted_e * C + rank, E * C)
     token_of = order // K
 
@@ -142,9 +154,15 @@ def _slots(expert_idx: torch.Tensor, E: int, C: int):
     return order, valid, slot, src[:-1], occupied[:-1], slot_map.view(T, K)
 
 
-def _dispatch(xt: torch.Tensor, p: MoE, cfg: ModelConfig
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``_dispatch_core`` over all E experts: xt (T, M) → (y (T, M) f32, aux)."""
+def _dispatch_core(xt: torch.Tensor, p, cfg: ModelConfig, offset: int, E_loc: int,
+                   wi: torch.Tensor, wg: torch.Tensor, wo: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort-based capacity dispatch of ``xt`` (T, M) to the ``E_loc`` experts
+    whose weights are ``wi``/``wg``/``wo``, global expert ids offset by
+    ``offset`` (an EP slice): the reference's ``_dispatch_core``. Routes over
+    all E experts with ``p.router``, keeps the pairs whose expert lies in
+    [offset, offset + E_loc), capacity from T. Returns (y (T, M) f32, this
+    slice's part of the output; aux, over the global experts)."""
     T, M = xt.shape
     E, K = cfg.num_experts, cfg.top_k
     dev = xt.device
@@ -155,33 +173,106 @@ def _dispatch(xt: torch.Tensor, p: MoE, cfg: ModelConfig
     if is_dtensor(expert_idx):     # replicated: the routing is the same on every device
         expert_idx = expert_idx.to_local()
 
-    # load-balancing aux loss (Switch-style)
+    # load-balancing aux loss (Switch-style, over the global experts)
     flat_e = expert_idx.reshape(-1)                                   # (T·K,)
     ones = torch.ones(T * K, device=dev)
     ce = torch.zeros(E, device=dev).index_add_(0, flat_e, ones) / (T * K)
     aux = cfg.router_aux_weight * E * torch.sum(probs.mean(dim=0) * ce)
 
     C = capacity(T, cfg)
-    order, valid, slot, src, occupied, slot_map = _slots(expert_idx, E, C)
+    local_e = expert_idx - offset
+    local_e = torch.where((local_e >= 0) & (local_e < E_loc), local_e, E_loc)
+    order, valid, slot, src, occupied, slot_map = _slots(local_e, E_loc, C)
 
-    grouped = split_rows(_Dispatch.apply(xt, src, occupied, slot_map), E, C)  # (E, C, M)
-    h = torch.bmm(grouped, p.wi)
-    g = torch.bmm(grouped, p.wg)
-    yg = flatten(torch.bmm(h * F.silu(g), p.wo), 0, 1)                # (E·C, M)
+    grouped = split_rows(_Dispatch.apply(xt, src, occupied, slot_map), E_loc, C)  # (E_loc, C, M)
+    h = torch.bmm(grouped, wi)
+    g = torch.bmm(grouped, wg)
+    yg = flatten(torch.bmm(h * F.silu(g), wo), 0, 1)                  # (E_loc·C, M)
 
     w_slot = torch.where(valid, gate.reshape(-1)[order], 0.0)
-    w_of_slot = torch.zeros(E * C + 1, device=dev).index_put((slot,), w_slot)[:-1]
+    w_of_slot = torch.zeros(E_loc * C + 1, device=dev).index_put((slot,), w_slot)[:-1]
     y = _Combine.apply(yg.float() * w_of_slot[:, None] * occupied[:, None], slot_map, src,
                        occupied)
     return y, aux
 
 
+def _dispatch(xt: torch.Tensor, p: MoE, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_dispatch_core`` over all E experts: xt (T, M) → (y (T, M) f32, aux)."""
+    return _dispatch_core(xt, p, cfg, 0, cfg.num_experts, p.wi, p.wg, p.wo)
+
+
 def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, M) → (out in x's dtype, aux loss f32 scalar)."""
+    if cfg.moe_shard_map:
+        out = _moe_shard_map(p, x, cfg)
+        if out is not None:
+            return out
     B, S, M = x.shape
     xt = reshape_replicated(x, B * S, M)     # a step on a mesh: every token on every device
     y, aux = _dispatch(xt, p, cfg)
     if cfg.num_shared_experts:
         y = y + swiglu(xt, p.shared_wi, p.shared_wg, p.shared_wo).float()
     return reshape_replicated(y, B, S, M).to(x.dtype), aux
+
+
+def _moe_shard_map(p: MoE, x: torch.Tensor, cfg: ModelConfig
+                   ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """Shard-local dispatch on the mesh of ``x`` (a DTensor): the reference's
+    ``_moe_shard_map`` (module docstring). ``None`` where the reference's
+    returns it: ``x`` on no mesh, a mesh with no "model" axis, or neither
+    layout dividing (EP: E by the model axis, the rules putting "experts" on
+    it; else TP: ``moe_d_ff`` by it).
+
+    Each device takes its rows of the batch over the batch axes that divide
+    it, the router whole, its expert (EP) or ``moe_ff`` (TP) shards and its
+    ``ffn`` shard of the shared experts, and returns its partial output,
+    summed over "model" by one all-reduce (``settle``). aux is averaged over
+    the batch axes: each device's aux over the batch and model shards, summed
+    (the model shards hold the same aux, so the router's gradient takes it
+    once)."""
+    if not is_dtensor(x):
+        return None
+    mesh = x.device_mesh
+    sizes = mesh_shape(mesh)
+    if "model" not in sizes:
+        return None
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    m = sizes["model"]
+    batch_axes = tuple(a for a in ("pod", "data") if a in sizes and x.shape[0] % sizes[a] == 0)
+    ep = (dict(cfg.sharding_overrides).get("experts", "model") == "model"
+          and cfg.num_experts % m == 0)
+    if not ep and cfg.moe_d_ff % m:
+        return None
+
+    def pl(batch, model) -> tuple:
+        """Placements: ``batch`` on the batch axes, ``model`` on "model"."""
+        return tuple(batch if n in batch_axes else model if n == "model" else Replicate()
+                     for n in mesh.mesh_dim_names)
+
+    R, P = Replicate(), Partial()
+    win, wout = (Shard(0), Shard(0)) if ep else (Shard(2), Shard(1))
+    args = [x, p.router, p.wi, p.wg, p.wo]
+    pls = [pl(Shard(0), R), pl(R, R), pl(R, win), pl(R, win), pl(R, wout)]
+    grads = [pl(Shard(0), P), pl(P, P), pl(P, win), pl(P, win), pl(P, wout)]
+    if cfg.num_shared_experts:
+        args += [p.shared_wi, p.shared_wg, p.shared_wo]
+        pls += [pl(R, Shard(1)), pl(R, Shard(1)), pl(R, Shard(0))]
+        grads += [pl(P, Shard(1)), pl(P, Shard(1)), pl(P, Shard(0))]
+    shards = m * math.prod(sizes[a] for a in batch_axes)
+
+    # this device's shards; each gradient comes back in its grads placements
+    x_l, router, wi, wg, wo, *shared = (a.redistribute(mesh, q).to_local(grad_placements=g)
+                                        for a, q, g in zip(args, pls, grads))
+    Bl, S, M = x_l.shape
+    xt = x_l.reshape(Bl * S, M)
+    E_loc = wi.shape[0]
+    offset = mesh.get_local_rank("model") * E_loc if ep else 0
+    y, aux = _dispatch_core(xt, SimpleNamespace(router=router), cfg, offset, E_loc,
+                            wi, wg, wo)
+    if shared:
+        y = y + swiglu(xt, *shared).float()
+    y = DTensor.from_local(y.reshape(Bl, S, M), mesh, pl(Shard(0), P), run_check=False)
+    aux = DTensor.from_local(aux / shards, mesh, pl(P, P), run_check=False)
+    return settle(y).to(x.dtype), settle(aux)

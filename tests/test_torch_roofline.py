@@ -11,7 +11,10 @@ mamba2-780m steps against the reference's HLO analyzer on its compiled
 step (a 1×1 mesh on the CPU, as test_hlo_analyzer_loop_flops_exact runs it),
 within 5 %; one device's count on the 16×16 production mesh against the
 reference's per-device count on 256 forced host devices, for a dense, a GQA
-and an SSM arch, within 5 %; the dry run's rows and tables.
+and an SSM arch, within 5 %; each default-on knob of ``configs.optimized``
+on the same mesh at reduced MoE widths, its collective bytes below base's and
+its FLOPs within 5 % of the reference's count with the knob; the dry run's
+rows and tables.
 
 The reference's prefill computes the unembedding for every prompt position
 and slices the last; the port's computes it for the last only. The prefill
@@ -26,6 +29,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.configs import SHAPES, RunConfig, ShapeConfig, get_config, get_reduced  # noqa: E402,E501
+from repro_torch.configs import optimized  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.roofline import report  # noqa: E402
@@ -178,15 +182,21 @@ from repro.configs import RunConfig, ShapeConfig, get_reduced
 from repro.launch.mesh import make_production_mesh
 from repro.launch.steps import build_step
 from repro.roofline.hlo_parse import analyze_text
+from repro.configs.optimized import optimize
 cells, S, B = json.loads(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
+knob_cells = json.loads(sys.argv[4])
 mesh, out = make_production_mesh(), {}
-for arch, over in cells.items():
+runs = [(arch, over, kind, "") for arch, over in cells.items() for kind in ("prefill", "train")]
+runs += [(arch, over, kind, knob) for knob, arch, over, kind in knob_cells]
+for arch, over, kind, knob in runs:
     cfg = dataclasses.replace(get_reduced(arch), **over)
-    for kind in ("prefill", "train"):
-        with jax.set_mesh(mesh):
-            jitted, args = build_step(cfg, ShapeConfig("s", S, B, kind),
-                                      RunConfig(remat="none"), mesh)
-            out[arch + "/" + kind] = analyze_text(jitted.lower(*args).compile().as_text()).flops
+    if knob:
+        cfg = optimize(cfg, only={knob})
+    with jax.set_mesh(mesh):
+        jitted, args = build_step(cfg, ShapeConfig("s", S, B, kind),
+                                  RunConfig(remat="none"), mesh)
+        flops = analyze_text(jitted.lower(*args).compile().as_text()).flops
+    out["/".join(filter(None, (arch, kind, knob)))] = flops
 print(json.dumps(out))
 """
 
@@ -202,8 +212,8 @@ def reference_16x16():
                XLA_FLAGS="--xla_force_host_platform_device_count=256",
                PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""))
     got = subprocess.run([sys.executable, "-c", _REFERENCE_16x16, json.dumps(MESH_CELLS),
-                          str(MESH_S), str(MESH_B)], env=env, capture_output=True, text=True,
-                         timeout=600)
+                          str(MESH_S), str(MESH_B), json.dumps(KNOB_CELLS)], env=env,
+                         capture_output=True, text=True, timeout=600)
     assert got.returncode == 0, got.stderr[-3000:]
     return json.loads(got.stdout.strip().splitlines()[-1])
 
@@ -235,6 +245,62 @@ def test_count_on_16x16_matches_the_references_device(arch, kind, reference_16x1
         port -= products * cfg.num_layers * 2 * tokens * cfg.d_model * cfg.ssm_heads \
             * (m - 1) // m
     ref = reference_16x16[f"{arch}/{kind}"]
+    assert abs(port - ref) / ref < 0.05, (port, ref)
+
+
+# Each default-on knob (configs.optimized.DEFAULT_ON) on the 16×16 mesh at
+# reduced widths whose sharded axes divide 16: (knob, arch, widths, kind).
+# moe: qwen2-moe's 6 experts keep "experts" off "model" (TP on moe_ff 64),
+# deepseek's 16 divide it (EP, one a shard).
+MOE_WIDTHS = {
+    "qwen2-moe-a2.7b": dict(d_model=512, num_heads=16, num_kv_heads=16, head_dim=32,
+                            num_experts=6, moe_d_ff=64),
+    "deepseek-v2-lite-16b": dict(d_model=512, num_heads=16, kv_lora_rank=64, num_experts=16),
+}
+KNOB_CELLS = [("moe", arch, over, kind) for arch, over in MOE_WIDTHS.items()
+              for kind in ("prefill", "train")]
+
+
+def test_every_default_knob_has_a_cell_here():
+    """A default-on knob with no cell in KNOB_CELLS would go unchecked below."""
+    assert optimized.DEFAULT_ON <= {c[0] for c in KNOB_CELLS}
+
+
+def _knob_cell_ids(cell):
+    return "-".join((cell[0], cell[1], cell[3]))
+
+
+@pytest.mark.parametrize("cell", [c for c in KNOB_CELLS if c[0] in optimized.DEFAULT_ON],
+                         ids=_knob_cell_ids)
+def test_default_knob_lowers_collectives_and_matches_the_references_flops(
+        cell, reference_16x16):
+    """One device's collective bytes with the knob below base's; its FLOPs
+    within 5 % of the reference's HLO count with the same knob, after the
+    prefill's every-position logits and one named term: deepseek's latent
+    down-projection (``wkv_a``, ("embed", "lora"): replicated by the rules)
+    runs whole on every device in the port, where XLA splits its forward
+    product over "model" (15/16 of 2·T·M·(kv_lora + qk_rope) a layer)."""
+    import dataclasses
+    knob, arch, over, kind = cell
+    base_cfg = dataclasses.replace(get_reduced(arch), **over)
+    shape = ShapeConfig("s", MESH_S, MESH_B, kind)
+    reps = {}
+    for name, cfg in (("base", base_cfg), (knob, optimized.optimize(base_cfg, only={knob}))):
+        mesh_mod.close_mesh()
+        try:
+            reps[name] = dryrun.roofline_of(cfg, shape, RunConfig(remat="none"),
+                                            mesh_mod.make_production_mesh())
+        finally:
+            mesh_mod.close_mesh()
+    assert sum(reps[knob].coll_bytes.values()) < sum(reps["base"].coll_bytes.values())
+    port, m, tokens = reps[knob].hlo_flops, 16, MESH_B * MESH_S // 16
+    cfg = base_cfg
+    if kind == "prefill":
+        port += 2 * (MESH_B // 16) * (MESH_S - 1) * cfg.d_model * cfg.padded_vocab // m
+    if cfg.attention == "mla":
+        port -= cfg.num_layers * 2 * tokens * cfg.d_model \
+            * (cfg.kv_lora_rank + cfg.qk_rope_dim) * (m - 1) // m
+    ref = reference_16x16[f"{arch}/{kind}/{knob}"]
     assert abs(port - ref) / ref < 0.05, (port, ref)
 
 
