@@ -84,14 +84,20 @@ def descriptor_stats(page_table: np.ndarray, pages_per_block: int) -> dict:
             "reduction": pages / max(descs, 1)}
 
 
-def count_live_blocks(block_valid: np.ndarray, lengths: np.ndarray,
-                      page_tokens: int) -> int:
-    """The most descriptors any sequence needs: those with valid pages that
+def live_descriptors(block_valid: np.ndarray, lengths: np.ndarray,
+                     page_tokens: int) -> np.ndarray:
+    """(B,) descriptors each sequence needs: those with valid pages that
     start before its length (host arrays, so no device round trip)."""
     valid = np.asarray(block_valid, np.int64)
     before = (valid.cumsum(1) - valid) * page_tokens
     live = (valid > 0) & (before < np.asarray(lengths, np.int64)[:, None])
-    return int(live.sum(1).max(initial=0))
+    return live.sum(1)
+
+
+def count_live_blocks(block_valid: np.ndarray, lengths: np.ndarray,
+                      page_tokens: int) -> int:
+    """The most descriptors any sequence needs (``live_descriptors``)."""
+    return int(live_descriptors(block_valid, lengths, page_tokens).max(initial=0))
 
 
 def split_count(ctas: int, live_blocks: int, sm_count: int) -> int:

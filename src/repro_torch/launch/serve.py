@@ -23,6 +23,12 @@ continuation. Weights come from a seeded init, so nothing is downloaded.
 
 ``--device cpu`` runs the plain PyTorch versions of the kernels instead.
 
+Without ``--spill`` it then prints each part of the decode cache's
+``snapshot()``: the bytes it holds on the device, and for the paged pool
+the tokens, bytes and block descriptors that the last step found live, to
+size the pool, the ring or the SSM state against what the sequences use. A
+paged decode prints the page table's page-run coalescing before it.
+
 ``--spill`` adds the reference's remote-KV tier: a ``kv_store`` of
 ``box.open(spec, device=--device)`` (its pool on the device, donor memory
 pinned on the host) takes one row of KV features per sequence and decode
@@ -49,7 +55,8 @@ import torch
 from repro_torch import box, resolve_device
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.kernels.paged_attention.ops import descriptor_stats
-from repro_torch.models import Cache, PagedKVPool, Transformer, init_transformer
+from repro_torch.models import (Cache, HybridCache, PagedKVPool, Transformer,
+                                init_transformer)
 
 PAGES_PER_BLOCK = 4
 # pages reserved per client for the KV spill arena (the heap slice of
@@ -90,6 +97,12 @@ def _embeddings(rng: np.random.Generator, shape, device: torch.device) -> torch.
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _snapshots(cache: Cache) -> Dict[str, Dict[str, int]]:
+    """Each part of a decode cache's ``snapshot()``, by the part's class."""
+    parts = (cache.kv, cache.ssm) if isinstance(cache, HybridCache) else (cache,)
+    return {type(part).__name__: part.snapshot() for part in parts}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -275,9 +288,11 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
             spill = _spill_and_fetch(session, kv, args.clients, device)
         finally:
             session.close()
-    elif isinstance(cache, PagedKVPool):
-        print("page-run coalescing:",
-              descriptor_stats(cache.page_table, PAGES_PER_BLOCK))
+    else:
+        if isinstance(cache, PagedKVPool):
+            print("page-run coalescing:",
+                  descriptor_stats(cache.page_table, PAGES_PER_BLOCK))
+        print("decode cache after the last step:", _snapshots(cache))
     print("SERVING DONE")
     return ServeResult(model, cache, prompts, fed_t,
                        torch.stack(step_logits, dim=1), generated, prefill_s,

@@ -41,6 +41,7 @@ from ..distributed.sharding import (batch_spec, distribute, is_dtensor, optim_ru
                                     placements, rules_for, tree_shardings)
 from ..models.transformer import Transformer, logical_axes, loss_fn
 from ..optim import adamw
+from ..spans import span
 
 Placements = Dict[str, tuple]
 TrainStep = Callable[[Transformer, adamw.OptState, Dict[str, Any]],
@@ -157,11 +158,14 @@ def build_train_step(cfg: ModelConfig, run: RunConfig, mesh=None) -> TrainStep:
         for p in params.values():
             p.grad = None
         with dtensor_mode(model):
-            loss, metrics = loss_fn(model, tokens, targets, remat=run.remat)
-            loss.backward()
-            grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                     for n, p in params.items()}
-            opt_state, om = adamw.update(grads, opt_state, params, run)
+            with span("train.forward"):
+                loss, metrics = loss_fn(model, tokens, targets, remat=run.remat)
+            with span("train.backward"):
+                loss.backward()
+            with span("train.optimizer"):
+                grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                         for n, p in params.items()}
+                opt_state, om = adamw.update(grads, opt_state, params, run)
         for p in params.values():
             p.grad = None
         out = {"loss": loss.detach(), "nll": metrics["nll"].detach(),

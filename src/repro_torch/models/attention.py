@@ -30,7 +30,7 @@ MLA's latent cache.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,8 +40,8 @@ from ..configs.base import ModelConfig
 from ..distributed.sharding import (Shards, flatten, keep_grad_sharded, on_local_shards,
                                     split_last)
 from ..kernels.flash_attention.ops import flash_attention_op
-from ..kernels.paged_attention.ops import (count_live_blocks, paged_attention,
-                                           plan_blocks)
+from ..kernels.paged_attention.ops import (count_live_blocks, live_descriptors,
+                                           paged_attention, plan_blocks)
 from ..memory.kv_cache import PageAllocator
 from .layers import apply_rope, weight
 
@@ -162,11 +162,26 @@ class PagedKVPool:
         self.pool = torch.zeros(
             (cfg.num_layers, self.allocator.num_pages + R - 1, T, 2,
              kv_heads, cfg.head_dim), dtype=dtype, device=device)
+        self._last_plan: Optional[Tuple[np.ndarray, np.ndarray]] = None   # (valid, lengths)
 
     @property
     def capacity(self) -> int:
         """Tokens each sequence can hold."""
         return self.page_table.shape[1] * self.page_tokens
+
+    def snapshot(self) -> Dict[str, int]:
+        """The pool's bytes on the device, and what the last ``plan_step``
+        found live: its tokens, their K and V in every layer, and the block
+        descriptors that hold them."""
+        out = {"reserved_bytes": self.pool.nbytes, "live_tokens": 0, "live_bytes": 0,
+               "live_blocks": 0}
+        if self._last_plan is not None:
+            valid, lengths = self._last_plan
+            tokens = int(lengths.sum())
+            token_bytes = self.pool.shape[0] * self.pool[0, 0, 0].nbytes     # L · (2, Kh, D)
+            out.update(live_tokens=tokens, live_bytes=tokens * token_bytes,
+                       live_blocks=int(live_descriptors(valid, lengths, self.page_tokens).sum()))
+        return out
 
     def token_slots(self, positions: np.ndarray) -> np.ndarray:
         """(B, S) token positions → flat slots ``page·T + offset`` of the pool."""
@@ -205,6 +220,7 @@ class PagedKVPool:
         packed = np.concatenate([starts.ravel(), valid.ravel(), cur + 1,
                                  self.token_slots(cur[:, None])[:, 0]])
         dev = torch.from_numpy(packed.astype(np.int32)).to(self.pool.device)
+        self._last_plan = (valid, cur + 1)
         B, NB = starts.shape
         n = B * NB
         return DecodePlan(dev[:n].view(B, NB), dev[n:2 * n].view(B, NB),
@@ -269,6 +285,10 @@ class SlotCache:
     @property
     def device(self) -> torch.device:
         return self.bufs[0].device
+
+    def snapshot(self) -> Dict[str, int]:
+        """The cache's bytes on the device (every slot of every layer)."""
+        return {"reserved_bytes": sum(buf.nbytes for buf in self.bufs)}
 
     def _check(self, last: int) -> None:
         """Positions up to ``last`` are about to be written; a ring takes any."""

@@ -133,6 +133,10 @@ class SSMCache:
 
     DIMS = {"conv": (0, 2), "h": (0, 1)}      # (batch dim, split dim) of a layer's state
 
+    def snapshot(self) -> Dict[str, int]:
+        """The state's bytes on the device (conv and h, every layer)."""
+        return {"reserved_bytes": self.conv.nbytes + self.h.nbytes}
+
     def read(self, layer: int) -> Dict[str, torch.Tensor]:
         state = {"conv": self.conv[layer], "h": self.h[layer]}
         if self.shards is None:

@@ -39,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import resolve_device
 from ..configs.base import ModelConfig
 from ..distributed.sharding import Shards, is_dtensor, on_local_shards, settle
+from ..spans import span
 from .attention import (Attention, PagedKVPool, RingKVCache, attention_decode,
                         attention_train)
 from .layers import MLP, init_weights, rms_norm, weight
@@ -107,22 +108,25 @@ class Block(nn.Module):
         a = s = None
         B = h.shape[0]
         if self.attn is not None:
-            a, k, v = attention_train(self.attn, h, cfg, positions)
-            if kv is not None:
-                on_local_shards(lambda k, v: kv.write_prompt(layer, kv_plan, k, v), (k, v),
-                                ((0, 2), (0, 2)), (), batch=B,
-                                heads=(cfg.num_heads, cfg.num_kv_heads))
+            with span("layer.attn"):
+                a, k, v = attention_train(self.attn, h, cfg, positions)
+                if kv is not None:
+                    on_local_shards(lambda k, v: kv.write_prompt(layer, kv_plan, k, v),
+                                    (k, v), ((0, 2), (0, 2)), (), batch=B,
+                                    heads=(cfg.num_heads, cfg.num_kv_heads))
         elif self.mla is not None:
-            a, c_kv, k_pe = mla_train(self.mla, h, cfg, positions)
-            if kv is not None:
-                on_local_shards(lambda c, k: kv.write_prompt(layer, kv_plan, c, k),
-                                (c_kv, k_pe), ((0, 2), (0, None)), (), batch=B,
-                                heads=(cfg.kv_lora_rank,))
+            with span("layer.attn"):
+                a, c_kv, k_pe = mla_train(self.mla, h, cfg, positions)
+                if kv is not None:
+                    on_local_shards(lambda c, k: kv.write_prompt(layer, kv_plan, c, k),
+                                    (c_kv, k_pe), ((0, 2), (0, None)), (), batch=B,
+                                    heads=(cfg.kv_lora_rank,))
         if self.ssm is not None:
-            s = ssm_train(self.ssm, h, cfg, return_state=ssm is not None)
-            if ssm is not None:
-                s, state = s
-                ssm.write(layer, state)
+            with span("layer.ssm"):
+                s = ssm_train(self.ssm, h, cfg, return_state=ssm is not None)
+                if ssm is not None:
+                    s, state = s
+                    ssm.write(layer, state)
         return settle(self._mix(a, s))
 
     def mix_step(self, h: torch.Tensor, layer: int, kv: Optional[KVCache], plan,
@@ -131,31 +135,36 @@ class Block(nn.Module):
         cfg = self.cfg
         a = s = None
         if self.attn is not None:
-            a = attention_decode(self.attn, h, cfg, kv, layer, plan)
+            with span("layer.attn"):
+                a = attention_decode(self.attn, h, cfg, kv, layer, plan)
         elif self.mla is not None:
-            a = mla_decode(self.mla, h, cfg, kv, layer, plan)
+            with span("layer.attn"):
+                a = mla_decode(self.mla, h, cfg, kv, layer, plan)
         if self.ssm is not None:
-            s = ssm_decode(self.ssm, h, ssm, layer, cfg)
+            with span("layer.ssm"):
+                s = ssm_decode(self.ssm, h, ssm, layer, cfg)
         return settle(self._mix(a, s))
 
     def ffn(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(x + FFN(norm(x)), the MoE's aux loss or None). Prefill and decode
         drop the aux loss, as the reference's do; training adds it."""
-        if self.moe is not None:
-            y, aux = moe_apply(self.moe, rms_norm(x, self.norm_ffn, self.cfg.norm_eps),
-                               self.cfg)
-            return x + y, aux
-        if self.mlp is None:                     # d_ff = 0: the FFN half adds zero
+        if self.mlp is None and self.moe is None:    # d_ff = 0: the FFN half adds zero
             return x, None
-        return x + settle(self.mlp(rms_norm(x, self.norm_ffn, self.cfg.norm_eps))), None
+        with span("layer.ffn"):
+            if self.moe is not None:
+                y, aux = moe_apply(self.moe, rms_norm(x, self.norm_ffn, self.cfg.norm_eps),
+                                   self.cfg)
+                return x + y, aux
+            return x + settle(self.mlp(rms_norm(x, self.norm_ffn, self.cfg.norm_eps))), None
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, layer: int,
                 kv: Optional[KVCache], kv_plan, ssm: Optional[SSMCache]
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The block over a whole sequence (the reference's ``block_forward``):
         (x out, aux loss or None); decode state goes into the caches given."""
-        h = rms_norm(x, self.norm_mixer, self.cfg.norm_eps)
-        return self.ffn(x + self.mix_prompt(h, positions, layer, kv, kv_plan, ssm))
+        with span("layer"):
+            h = rms_norm(x, self.norm_mixer, self.cfg.norm_eps)
+            return self.ffn(x + self.mix_prompt(h, positions, layer, kv, kv_plan, ssm))
 
 
 class Transformer(nn.Module):
@@ -266,19 +275,26 @@ class Transformer(nn.Module):
     def prefill(self, tokens_or_embeds: torch.Tensor, cache: Cache) -> torch.Tensor:
         """Runs the prompt, writes its decode state into ``cache``;
         last-position logits."""
-        return self._logits(self._trunk(tokens_or_embeds, cache)[0][:, -1])
+        with span("prefill.step"):
+            return self._logits(self._trunk(tokens_or_embeds, cache)[0][:, -1])
 
     def decode_step(self, cache: Cache, token_or_embed: torch.Tensor,
                     cur_index: np.ndarray) -> torch.Tensor:
         """One token per sequence: ids (B,) or embeddings (B, M) at host
         positions ``cur_index`` (B,). Returns logits (B, padded_vocab)."""
-        kv, ssm = _parts(cache)
-        plan = kv.plan_step(cur_index) if kv is not None else None
-        x = self._embed(token_or_embed, 1)[:, None, :]              # (B, 1, M)
-        for layer, blk in enumerate(self.blocks):
-            h = rms_norm(x, blk.norm_mixer, self.cfg.norm_eps)
-            x = blk.ffn(x + blk.mix_step(h, layer, kv, plan, ssm))[0]
-        return self._logits(x)[:, 0]
+        with span("decode.step"):
+            kv, ssm = _parts(cache)
+            plan = None
+            if kv is not None:
+                with span("kv.plan"):
+                    plan = kv.plan_step(cur_index)
+            x = self._embed(token_or_embed, 1)[:, None, :]              # (B, 1, M)
+            for layer, blk in enumerate(self.blocks):
+                with span("layer"):
+                    h = rms_norm(x, blk.norm_mixer, self.cfg.norm_eps)
+                    x = blk.ffn(x + blk.mix_step(h, layer, kv, plan, ssm))[0]
+            with span("decode.logits"):
+                return self._logits(x)[:, 0]
 
 
 def logical_axes(model: nn.Module) -> Dict[str, Tuple[Optional[str], ...]]:
