@@ -2622,6 +2622,9 @@ def steps_decode(model, mesh, cfg, shape, tokens, steps, kernel, gen):
         cache = filled(m32)
         step(m32, cache, tokens[:, 0], np.full(batch, start))
         got = decode_run(step, m32, cache, tokens[:, 0], start + 1, steps)
+        # the steps replayed CUDA graphs that hold the kernels; a cast drops them,
+        # so the plain run warms up and captures the plain versions anew
+        m32.float()
         with plain_kernels():
             want = decode_run(step, m32, cache, tokens[:, 0], start + 1, steps)
         checks["f32_vs_plain_decode"] = max(rel_err(w, g) for w, g in zip(want, got))

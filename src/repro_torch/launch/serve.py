@@ -27,7 +27,11 @@ Without ``--spill`` it then prints each part of the decode cache's
 ``snapshot()``: the bytes it holds on the device, and for the paged pool
 the tokens, bytes and block descriptors that the last step found live, to
 size the pool, the ring or the SSM state against what the sequences use. A
-paged decode prints the page table's page-run coalescing before it.
+paged decode prints the page table's page-run coalescing before it. Then
+the decode steps' counts (``Transformer.decode_graphs``): on the card the
+steps replayed as CUDA graphs and the graphs captured by launch key, and
+the steps run eagerly by reason (the first warms the capture stream; on the
+CPU every step is eager).
 
 ``--spill`` adds the reference's remote-KV tier: a ``kv_store`` of
 ``box.open(spec, device=--device)`` (its pool on the device, donor memory
@@ -293,6 +297,7 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
             print("page-run coalescing:",
                   descriptor_stats(cache.page_table, PAGES_PER_BLOCK))
         print("decode cache after the last step:", _snapshots(cache))
+        print("decode steps:", model.decode_graphs(cache).snapshot())
     print("SERVING DONE")
     return ServeResult(model, cache, prompts, fed_t,
                        torch.stack(step_logits, dim=1), generated, prefill_s,

@@ -24,12 +24,15 @@ A decode cache offers ``prompt_plan``/``write_prompt`` (prefill stores
 the prompt's entries), ``plan_step`` (one step's indices on the device,
 shared by every layer) and, for K/V caches, ``attend`` (store this step's
 k/v, attend over the cache); ``SlotCache`` is the dense kind, also used for
-MLA's latent cache.
+MLA's latent cache. ``plan_step`` plans on the host and writes the packed
+plan into one device buffer that the cache keeps (``PlanBuffer``), with one
+copy: every step's plan lies at the same addresses, so a decode step can be
+captured once as a CUDA graph and replayed (``models/decode_graph.py``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -109,6 +112,7 @@ class DecodePlan:
     slot: torch.Tensor          # (B,) int32: flat token slot of this step's k/v
     live_blocks: int            # host: most descriptors a sequence needs
     global_positions: Optional[torch.Tensor] = None   # a sharded pool: every sequence's
+    most_blocks: int = 0        # host: most descriptors a sequence holds (live_blocks' cap)
 
     @property
     def positions(self) -> torch.Tensor:
@@ -116,6 +120,18 @@ class DecodePlan:
         if self.global_positions is not None:
             return self.global_positions
         return (self.lengths - 1)[:, None]
+
+    @property
+    def launch_keys(self) -> range:
+        """The host values the step's launches depend on (the paged kernel's
+        grid and splits follow ``live_blocks``): this step's, then every one
+        above it up to ``most_blocks``, which later steps meet as their
+        sequences grow (a turn that restarts lower meets its own again)."""
+        return range(self.live_blocks, max(self.live_blocks, self.most_blocks) + 1)
+
+    def for_key(self, key: int) -> "DecodePlan":
+        """The same buffers, launched as a step whose ``live_blocks`` is ``key``."""
+        return self if key == self.live_blocks else replace(self, live_blocks=key)
 
 
 def _local_rows(cur_index: np.ndarray, shards: Optional[Shards], device
@@ -126,6 +142,44 @@ def _local_rows(cur_index: np.ndarray, shards: Optional[Shards], device
     if shards is None:
         return cur, None
     return shards.rows(cur), torch.from_numpy(cur[:, None]).to(device)
+
+
+class PlanBuffer:
+    """The device buffer of a cache's step plan, written by one copy a step
+    (``put``): every step's plan lies at the same addresses.
+
+    On the card the copy comes from ``STAGES`` pinned host buffers in turn
+    and does not wait for the device, so the host plans and launches the next
+    step while the device still runs this one. A host buffer is written again
+    only once its last copy, ``STAGES`` steps back, has landed (its event;
+    a replayed decode step has waited for that step already,
+    ``models/decode_graph.py``, so the check does not hold the host). The
+    device buffer is rewritten in stream order, after the kernels of the
+    step before, which read it. Elsewhere (the CPU, meta tensors) the copy is
+    direct."""
+
+    STAGES = 3
+
+    def __init__(self, numel: int, dtype: torch.dtype, device: torch.device) -> None:
+        self.dev = torch.zeros(numel, dtype=dtype, device=device)
+        self.staged = []
+        if self.dev.device.type == "cuda":
+            self.staged = [(torch.empty(numel, dtype=dtype, pin_memory=True),
+                            torch.cuda.Event()) for _ in range(self.STAGES)]
+        self.turn = 0
+
+    def put(self, packed: np.ndarray) -> torch.Tensor:
+        """``packed`` (the buffer's dtype and size) on the device."""
+        src = torch.from_numpy(packed)
+        if not self.staged:
+            return self.dev.copy_(src)
+        host, landed = self.staged[self.turn]
+        self.turn = (self.turn + 1) % self.STAGES
+        landed.synchronize()             # an event never recorded returns at once
+        host.copy_(src)
+        self.dev.copy_(host, non_blocking=True)
+        landed.record(torch.cuda.current_stream(self.dev.device))
+        return self.dev
 
 
 class PagedKVPool:
@@ -162,6 +216,8 @@ class PagedKVPool:
         self.pool = torch.zeros(
             (cfg.num_layers, self.allocator.num_pages + R - 1, T, 2,
              kv_heads, cfg.head_dim), dtype=dtype, device=device)
+        B, NB = self.page_table.shape     # plan_blocks: NB = Pmax descriptors at worst
+        self._plan = PlanBuffer(2 * B * NB + 2 * B, torch.int32, device)
         self._last_plan: Optional[Tuple[np.ndarray, np.ndarray]] = None   # (valid, lengths)
 
     @property
@@ -208,7 +264,8 @@ class PagedKVPool:
     write_prompt = write                 # with ``prompt_plan``'s slots
 
     def plan_step(self, cur_index: np.ndarray) -> DecodePlan:
-        """Plan the blocks and this step's write slot on the host; one copy up.
+        """Plan the blocks and this step's write slot on the host; one copy up,
+        into the pool's plan buffer (the same tensors every step).
 
         ``cur_index`` (B,) is each sequence's position of the token being
         decoded, i.e. its cached tokens so far. Each sequence holds all its
@@ -219,13 +276,14 @@ class PagedKVPool:
         starts, valid = plan_blocks(self.page_table, self.pages_per_block)
         packed = np.concatenate([starts.ravel(), valid.ravel(), cur + 1,
                                  self.token_slots(cur[:, None])[:, 0]])
-        dev = torch.from_numpy(packed.astype(np.int32)).to(self.pool.device)
+        dev = self._plan.put(packed.astype(np.int32))
         self._last_plan = (valid, cur + 1)
         B, NB = starts.shape
         n = B * NB
         return DecodePlan(dev[:n].view(B, NB), dev[n:2 * n].view(B, NB),
                           dev[2 * n:2 * n + B], dev[2 * n + B:],
-                          count_live_blocks(valid, cur + 1, self.page_tokens), positions)
+                          count_live_blocks(valid, cur + 1, self.page_tokens), positions,
+                          most_blocks=int((valid > 0).sum(1).max(initial=0)))
 
     def attend(self, layer: int, plan: DecodePlan, q: torch.Tensor, k: torch.Tensor,
                v: torch.Tensor) -> torch.Tensor:
@@ -251,6 +309,11 @@ class SlotPlan:
     slot: torch.Tensor          # (B,): where the step's entry goes
     valid: torch.Tensor         # (B, length) bool: the slots the step attends to
                                 # (a sharded cache: its own sequences' slot and valid)
+    launch_keys = (None,)       # no host value shapes the step's launches
+
+    def for_key(self, key: None) -> "SlotPlan":
+        """The plan itself: its one key."""
+        return self
 
 
 class SlotCache:
@@ -281,6 +344,8 @@ class SlotCache:
             batch = shards.local_batch
         self.bufs = [torch.zeros((num_layers, batch, length, *shape), dtype=dtype,
                                  device=device) for shape in shapes]
+        # the step plan's bytes: positions and slots (B,) int64, then valid (B, length)
+        self._plan = PlanBuffer(16 * batch + batch * length, torch.uint8, device)
 
     @property
     def device(self) -> torch.device:
@@ -307,17 +372,22 @@ class SlotCache:
             buf[layer][:, slots] = val[:, pos].to(buf.dtype)
 
     def plan_step(self, cur_index: np.ndarray) -> SlotPlan:
-        """Slot and mask of the step at host positions ``cur_index`` (B,)."""
+        """Slot and mask of the step at host positions ``cur_index`` (B,),
+        copied up at once into the cache's plan buffer (the same tensors
+        every step)."""
         cur, positions = _local_rows(cur_index, self.shards, self.device)
         self._check(int(cur.max()))
         slot = cur % self.length
         age = (slot[:, None] - np.arange(self.length)[None, :]) % self.length
         valid = age < np.minimum(cur + 1, self.length)[:, None]
-        dev = self.device
+        B = len(cur)
+        buf = self._plan.put(np.concatenate(
+            [np.ascontiguousarray(cur).view(np.uint8), slot.view(np.uint8),
+             valid.view(np.uint8).ravel()]))
         if positions is None:
-            positions = torch.from_numpy(cur[:, None]).to(dev)
-        return SlotPlan(positions, torch.from_numpy(slot).to(dev),
-                        torch.from_numpy(valid).to(dev))
+            positions = buf[:8 * B].view(torch.int64).view(B, 1)
+        return SlotPlan(positions, buf[8 * B:16 * B].view(torch.int64),
+                        buf[16 * B:].view(torch.bool).view(B, self.length))
 
     def write_step(self, layer: int, plan: SlotPlan, *values: torch.Tensor) -> None:
         """Each value (B, *shape) at its sequence's step slot, in place."""

@@ -27,6 +27,7 @@ scan body.
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple, Union
 
@@ -42,6 +43,7 @@ from ..distributed.sharding import Shards, is_dtensor, on_local_shards, settle
 from ..spans import span
 from .attention import (Attention, PagedKVPool, RingKVCache, attention_decode,
                         attention_train)
+from .decode_graph import DecodeGraphs, eager_reason
 from .layers import MLP, init_weights, rms_norm, weight
 from .mla import MLA, LatentCache, mla_decode, mla_train
 from .moe import MoE, moe_apply
@@ -50,7 +52,7 @@ from .ssm import SSM, SSMCache, ssm_decode, ssm_train
 KVCache = Union[PagedKVPool, RingKVCache, LatentCache]
 
 
-@dataclass
+@dataclass(eq=False)           # hashed by identity: a key of the model's decode graphs
 class HybridCache:
     """A hybrid arch's decode cache: its attention half's ring of the last
     ``window`` tokens' K/V and its SSM half's state."""
@@ -186,6 +188,14 @@ class Transformer(nn.Module):
         self.final_norm = weight(cfg.d_model, device=device)
         if not cfg.tie_embeddings:
             self.unembed = weight(cfg.d_model, cfg.padded_vocab, device=device)
+        self._decode_graphs: "weakref.WeakKeyDictionary[Cache, DecodeGraphs]" = (
+            weakref.WeakKeyDictionary())
+
+    def _apply(self, fn, recurse=True):
+        """A move or cast gives the parameters new storage, which graphs
+        captured before it do not read: they are dropped."""
+        self._decode_graphs = weakref.WeakKeyDictionary()
+        return super()._apply(fn, recurse)
 
     @property
     def device(self) -> torch.device:
@@ -278,23 +288,42 @@ class Transformer(nn.Module):
         with span("prefill.step"):
             return self._logits(self._trunk(tokens_or_embeds, cache)[0][:, -1])
 
+    def decode_graphs(self, cache: Cache) -> DecodeGraphs:
+        """This model's decode graphs on ``cache`` and its steps' counts
+        (``models/decode_graph.py``), held as long as the cache lives."""
+        graphs = self._decode_graphs.get(cache)
+        if graphs is None:
+            graphs = self._decode_graphs[cache] = DecodeGraphs(self.device)
+        return graphs
+
     def decode_step(self, cache: Cache, token_or_embed: torch.Tensor,
                     cur_index: np.ndarray) -> torch.Tensor:
         """One token per sequence: ids (B,) or embeddings (B, M) at host
-        positions ``cur_index`` (B,). Returns logits (B, padded_vocab)."""
+        positions ``cur_index`` (B,). Returns logits (B, padded_vocab), which
+        no later step overwrites. On the card the step replays a CUDA graph
+        of ``_decode_body`` where ``eager_reason`` finds nothing against it."""
         with span("decode.step"):
             kv, ssm = _parts(cache)
             plan = None
             if kv is not None:
                 with span("kv.plan"):
                     plan = kv.plan_step(cur_index)
-            x = self._embed(token_or_embed, 1)[:, None, :]              # (B, 1, M)
-            for layer, blk in enumerate(self.blocks):
-                with span("layer"):
-                    h = rms_norm(x, blk.norm_mixer, self.cfg.norm_eps)
-                    x = blk.ffn(x + blk.mix_step(h, layer, kv, plan, ssm))[0]
-            with span("decode.logits"):
-                return self._logits(x)[:, 0]
+            return self.decode_graphs(cache).run(
+                lambda inp, key: self._decode_body(
+                    kv, ssm, None if plan is None else plan.for_key(key), inp),
+                token_or_embed, eager_reason(self, (kv, ssm)),
+                (None,) if plan is None else plan.launch_keys)
+
+    def _decode_body(self, kv: Optional[KVCache], ssm: Optional[SSMCache], plan,
+                     token_or_embed: torch.Tensor) -> torch.Tensor:
+        """The step on the device, from the input and the planned buffers."""
+        x = self._embed(token_or_embed, 1)[:, None, :]              # (B, 1, M)
+        for layer, blk in enumerate(self.blocks):
+            with span("layer"):
+                h = rms_norm(x, blk.norm_mixer, self.cfg.norm_eps)
+                x = blk.ffn(x + blk.mix_step(h, layer, kv, plan, ssm))[0]
+        with span("decode.logits"):
+            return self._logits(x)[:, 0]
 
 
 def logical_axes(model: nn.Module) -> Dict[str, Tuple[Optional[str], ...]]:

@@ -23,6 +23,11 @@ The spans, and the spans each nests in:
 
 - ``decode.step``: ``Transformer.decode_step``, the whole call;
 - ``kv.plan``: the decode cache's ``plan_step`` (in ``decode.step``);
+- ``decode.replay``: the launch of a step's CUDA graph, and
+  ``decode.capture``: the capture of a new launch key's graphs (in
+  ``decode.step``; ``models/decode_graph.py``). A replayed step runs no
+  ``layer`` span on the host: the spans below are those of an eager step
+  and of a capture;
 - ``layer``: one block (in ``decode.step``, ``prefill.step``,
   ``train.forward``, or ``train.backward`` where a block is recomputed), holding ``layer.attn`` (attention or MLA, with the
   cache write), ``layer.ssm`` (the SSM, with its state write) and

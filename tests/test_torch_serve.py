@@ -4,7 +4,8 @@ The serving entry point runs the reduced qwen1.5-0.5b and mamba2-780m
 through the kernels' plain versions and must print the reference's serving
 lines: for qwen with a page-run coalescing dict equal to the reference
 planner's on the same page table, for mamba2 (no pages) without that line;
-then, beyond the reference's lines, the decode cache's ``snapshot()``.
+then, beyond the reference's lines, the decode cache's ``snapshot()`` and
+the decode steps' counts.
 The port must import neither JAX nor the ``repro`` package.
 On a GPU machine without JAX, the card's case runs with
 ``PYTHONPATH=src python -m pytest --noconftest tests/test_torch_serve.py -k gpu``.
@@ -65,13 +66,15 @@ def test_serve_ssm_prints_the_reference_lines(capsys):
     (which prints it only under --spill), there is no page-run line."""
     res = serve.main(SSM_ARGS)
     out = capsys.readouterr().out.splitlines()
-    assert len(out) == 5 and out[-1] == "SERVING DONE"
+    assert len(out) == 6 and out[-1] == "SERVING DONE"
     assert re.fullmatch(r"prefill 64 tokens × 2 seqs in [0-9.]+s", out[0])
     assert re.fullmatch(r"decode 6 steps × 2 seqs: [0-9.,]+ tok/s", out[1])
     ids = ast.literal_eval(out[2].removeprefix("sample continuation token ids: "))
     assert ids == res.generated[0].tolist()
     snaps = ast.literal_eval(out[3].removeprefix("decode cache after the last step: "))
     assert snaps == {"SSMCache": res.cache.snapshot()}
+    steps = ast.literal_eval(out[4].removeprefix("decode steps: "))
+    assert steps == {"replays": 0, "captures": {}, "eager": {"cpu device": 6}}
     assert res.cache.h.shape == (2, 2, 4, 16, 32)       # (L, B, H, N, P)
     vocab = res.model.cfg.vocab_size
     greedy = res.decode_logits[:, :, :vocab].argmax(-1).numpy()

@@ -273,6 +273,9 @@ def test_steps_on_a_local_mesh_equal_the_plain_model(arch, as_dtensors, local_me
     for i in range(GEN):
         logits, cache = decode(stepped, cache, toks[:, PROMPT + i], np.full(2, PROMPT + i))
         assert tp.rel_err(_full(logits), want[1 + i]) < tp.TOL, i
+    # a step whose parameters are DTensors runs eagerly (models/decode_graph.py)
+    reason = "parameters on a mesh" if as_dtensors else "cpu device"
+    assert stepped.decode_graphs(cache).snapshot()["eager"] == {reason: GEN}
 
 
 def _full(t):
