@@ -64,6 +64,16 @@ class ModelConfig:
     frontend: Optional[str] = None   # audio|vision: stubbed modality frontend
     sharding_overrides: Tuple[Tuple[str, Optional[str]], ...] = ()
     notes: str = ""
+    # --- the port's own (PORT_ONLY): a published model as released ----------
+    first_dense_layers: int = 0      # leading layers with a dense SwiGLU of d_ff, not the MoE
+    norm_topk_prob: bool = True      # renormalise the top-k gates to sum to 1
+    moe_dropless: bool = False       # keep every (token, expert) pair: no capacity
+    yarn_factor: float = 0.0         # YaRN rope scaling factor (0: plain rope)
+    yarn_original_max_pos: int = 0   # the context the rope was trained at
+    yarn_beta_fast: float = 32.0     # rotations where interpolation ends (high freqs kept)
+    yarn_beta_slow: float = 1.0      # rotations where it is complete (low freqs interpolated)
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
 
     @property
     def padded_vocab(self) -> int:
@@ -93,8 +103,19 @@ class ModelConfig:
         return self.mixer == "ssm" or (self.mixer == "hybrid") or (
             self.window is not None)
 
+    @property
+    def moe_layers(self) -> int:
+        """Layers whose FFN is the MoE: all of them, or those after
+        ``first_dense_layers`` (whose FFN is a SwiGLU of ``d_ff``)."""
+        return max(self.num_layers - self.first_dense_layers, 0) if self.uses_moe else 0
+
+    def is_moe_layer(self, layer: int) -> bool:
+        return self.uses_moe and layer >= self.first_dense_layers
+
     def param_count(self) -> int:
-        """Analytic parameter count (used for 6ND roofline math)."""
+        """Analytic parameter count (used for 6ND roofline math). With
+        ``first_dense_layers`` those layers count a SwiGLU of ``d_ff`` and the
+        rest the MoE alone."""
         c = self
         n = c.vocab_size * c.d_model          # embed
         if not c.tie_embeddings:
@@ -119,13 +140,16 @@ class ModelConfig:
             per_layer += c.d_model * c.ssm_heads                        # dt proj
             per_layer += d_in * c.d_model                               # out proj
             per_layer += 2 * c.ssm_heads                                # A_log, D
-        if c.d_ff:
-            per_layer += 3 * c.d_model * c.d_ff                         # swiglu
+        dense = 3 * c.d_model * c.d_ff                                  # swiglu
+        moe = 0
         if c.uses_moe:
-            per_layer += c.d_model * c.num_experts                      # router
-            per_layer += c.num_experts * 3 * c.d_model * c.moe_d_ff
-            per_layer += c.num_shared_experts * 3 * c.d_model * c.moe_d_ff
-        return n + c.num_layers * per_layer
+            moe += c.d_model * c.num_experts                            # router
+            moe += c.num_experts * 3 * c.d_model * c.moe_d_ff
+            moe += c.num_shared_experts * 3 * c.d_model * c.moe_d_ff
+        if c.first_dense_layers and c.uses_moe:
+            return (n + c.num_layers * per_layer + (c.num_layers - c.moe_layers) * dense
+                    + c.moe_layers * moe)
+        return n + c.num_layers * (per_layer + dense + moe)
 
     def active_param_count(self) -> int:
         """Params touched per token (MoE: top_k + shared only)."""
@@ -133,8 +157,8 @@ class ModelConfig:
             return self.param_count()
         c = self
         full = self.param_count()
-        routed_all = c.num_layers * c.num_experts * 3 * c.d_model * c.moe_d_ff
-        routed_active = c.num_layers * c.top_k * 3 * c.d_model * c.moe_d_ff
+        routed_all = c.moe_layers * c.num_experts * 3 * c.d_model * c.moe_d_ff
+        routed_active = c.moe_layers * c.top_k * 3 * c.d_model * c.moe_d_ff
         return full - routed_all + routed_active
 
 
@@ -183,3 +207,20 @@ def cell_supported(model: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
 
 def replace(cfg, **kw):
     return dataclasses.replace(cfg, **kw)
+
+
+PORT_ONLY = ("first_dense_layers", "norm_topk_prob", "moe_dropless", "yarn_factor",
+             "yarn_original_max_pos", "yarn_beta_fast", "yarn_beta_slow", "yarn_mscale",
+             "yarn_mscale_all_dim")
+
+
+def shared_fields(cfg: ModelConfig) -> Dict[str, object]:
+    """The config's fields that the reference's ``ModelConfig`` also has, as
+    ``dataclasses.asdict`` gives them: every field but ``PORT_ONLY``."""
+    return {k: v for k, v in dataclasses.asdict(cfg).items() if k not in PORT_ONLY}
+
+
+def port_only_at_defaults(cfg: ModelConfig) -> bool:
+    """Whether every ``PORT_ONLY`` field of ``cfg`` is at its default."""
+    defaults = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
+    return all(getattr(cfg, k) == defaults[k] for k in PORT_ONLY)

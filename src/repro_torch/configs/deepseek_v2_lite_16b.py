@@ -6,6 +6,15 @@ expert d_ff=1408. (The assignment line lists both "64e top-6" and
 numbers. Real V2-Lite's dense first layer is homogenized to MoE for
 scan-over-layers; noted in DESIGN.md.) MLA: qk_nope 128, qk_rope 64,
 v_head 128 ⇒ decode cache = 576 floats/token.
+
+``CONFIG`` is the reference's twin. ``PUBLISHED`` is the model as released
+(hf:deepseek-ai/DeepSeek-V2-Lite, config.json), through the port's own
+fields: layer 0 a dense SwiGLU of 10,944 (``first_dense_layers`` 1), the
+other 26 the MoE with gates as the softmax router gives them
+(``norm_topk_prob`` false, ``routed_scaling_factor`` 1), served dropless,
+YaRN rope (factor 40 over 4,096 original positions, β 32 and 1, mscale and
+mscale_all_dim 0.707), RMSNorm eps 1e-6. 15.71 B parameters, 2.45 B active
+a token besides the embedding table.
 """
 
 from .base import ModelConfig, replace
@@ -37,4 +46,11 @@ REDUCED = replace(
     vocab_size=512, num_heads=4, kv_lora_rank=32, qk_rope_dim=16,
     qk_nope_dim=32, v_head_dim=32, head_dim=48, num_experts=8,
     num_shared_experts=1, top_k=2, moe_d_ff=64,
+)
+
+PUBLISHED = replace(
+    CONFIG, d_ff=10_944, first_dense_layers=1, norm_topk_prob=False, moe_dropless=True,
+    norm_eps=1e-6, yarn_factor=40.0, yarn_original_max_pos=4096, yarn_beta_fast=32.0,
+    yarn_beta_slow=1.0, yarn_mscale=0.707, yarn_mscale_all_dim=0.707,
+    sharding_overrides=(),
 )

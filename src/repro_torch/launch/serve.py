@@ -31,7 +31,9 @@ paged decode prints the page table's page-run coalescing before it. Then
 the decode steps' counts (``Transformer.decode_graphs``): on the card the
 steps replayed as CUDA graphs and the graphs captured by launch key, and
 the steps run eagerly by reason (the first warms the capture stream; on the
-CPU every step is eager).
+CPU every step is eager). A MoE arch then prints each MoE layer's routing
+counter (``Transformer.routing_snapshot``): the pairs routed in the prefill
+and the decode, the most and the mean an expert took, and the pairs dropped.
 
 ``--spill`` adds the reference's remote-KV tier: a ``kv_store`` of
 ``box.open(spec, device=--device)`` (its pool on the device, donor memory
@@ -298,6 +300,8 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
                   descriptor_stats(cache.page_table, PAGES_PER_BLOCK))
         print("decode cache after the last step:", _snapshots(cache))
         print("decode steps:", model.decode_graphs(cache).snapshot())
+        if cfg.uses_moe:
+            print("routing (prefill and decode):", model.routing_snapshot())
     print("SERVING DONE")
     return ServeResult(model, cache, prompts, fed_t,
                        torch.stack(step_logits, dim=1), generated, prefill_s,

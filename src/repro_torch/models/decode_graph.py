@@ -44,8 +44,8 @@ parameters on a mesh (DTensors, whose collectives and redistributions are
 not captured), a sharded cache, autograd recording the step, or a device
 that is not CUDA. Every cache kind plans into fixed buffers, and every
 block's decode (GQA over the paged pool or the ring, MLA, the SSM, the MoE's
-sort-based dispatch) runs without a host sync and at shapes fixed by the
-batch, so no arch is kept eager for its own sake.
+sort-based dispatch, capacity or dropless) runs without a host sync and at
+shapes fixed by the batch, so no arch is kept eager for its own sake.
 
 The hand-written kernels count their launches in their wrappers
 (``kernels/*/ops.py``). A replay launches no wrapper, so the launches a

@@ -7,6 +7,9 @@ orientation, (in, out), so ``x @ w`` is the reference's
 
 from __future__ import annotations
 
+import math
+from typing import Tuple
+
 import torch
 from torch import nn
 
@@ -60,13 +63,73 @@ def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / dim))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (..., S, H, D) or (..., S, D); positions: (..., S). Split-half layout."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)             # (D/2,)
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention scale for a context ``factor`` times the original."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_range(dim: int, cfg) -> Tuple[int, int]:
+    """(low, high): the rope pairs between which YaRN's ramp runs, from the
+    pairs that turn ``yarn_beta_fast`` and ``yarn_beta_slow`` times over the
+    original context (DeepSeek-V2's ``yarn_find_correction_range``)."""
+    def pair(rotations: float) -> float:
+        return (dim * math.log(cfg.yarn_original_max_pos / (rotations * 2 * math.pi))
+                / (2 * math.log(cfg.rope_theta)))
+    return (max(math.floor(pair(cfg.yarn_beta_fast)), 0),
+            min(math.ceil(pair(cfg.yarn_beta_slow)), dim - 1))
+
+
+def yarn_freqs(dim: int, cfg, device=None) -> torch.Tensor:
+    """YaRN's rope frequencies (D/2,): θ^(−2i/D) (extrapolated) below pair
+    ``low``, θ^(−2i/D) / factor (interpolated) above ``high``, a linear ramp
+    between. Made on the device, so a CUDA graph may capture it."""
+    extra = rope_freqs(dim, cfg.rope_theta, device)
+    inter = extra / cfg.yarn_factor
+    low, high = yarn_range(dim, cfg)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device) - low)
+            / (high - low)).clamp(0, 1)
+    return inter * ramp + extra * (1 - ramp)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, cfg) -> torch.Tensor:
+    """``apply_rope`` by the config: YaRN's frequencies and cos/sin scale
+    where ``cfg.yarn_factor`` is set, else the plain rope at ``rope_theta``."""
+    if not cfg.yarn_factor:
+        return apply_rope(x, positions, cfg.rope_theta)
+    return apply_rope(x, positions, cfg.rope_theta,
+                      freqs=yarn_freqs(x.shape[-1], cfg, x.device),
+                      scale=(yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale)
+                             / yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim)))
+
+
+def yarn_attn_factor(cfg) -> float:
+    """YaRN's factor on attention scores, mscale(factor, mscale_all_dim)²
+    where the config sets both; else 1."""
+    if not (cfg.yarn_factor and cfg.yarn_mscale_all_dim):
+        return 1.0
+    return yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim) ** 2
+
+
+def softmax_scale(cfg, dim: int) -> float:
+    """Attention's score scale over a head dim ``dim``: dim^-0.5, times
+    ``yarn_attn_factor``."""
+    return dim ** -0.5 * yarn_attn_factor(cfg)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float, *,
+               freqs: torch.Tensor = None, scale: float = 1.0) -> torch.Tensor:
+    """x: (..., S, H, D) or (..., S, D); positions: (..., S). Split-half layout.
+    ``freqs`` (D/2,) replaces θ^(−2i/D); cos and sin are multiplied by ``scale``."""
+    if freqs is None:
+        freqs = rope_freqs(x.shape[-1], theta, x.device)         # (D/2,)
     angles = positions[..., None].float() * freqs                # (..., S, D/2)
     if x.ndim == angles.ndim + 1:                                # has head axis
         angles = angles[..., None, :]
     cos, sin = torch.cos(angles), torch.sin(angles)
+    if scale != 1.0:
+        cos, sin = cos * scale, sin * scale
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
 

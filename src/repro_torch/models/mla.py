@@ -27,7 +27,7 @@ from ..distributed.sharding import (Shards, flatten, is_dtensor, keep_grad_shard
                                     on_local_shards, settle, split_last)
 from ..kernels.flash_attention.ops import flash_attention_op
 from .attention import NEG_INF, SlotCache, SlotPlan
-from .layers import apply_rope, rms_norm, weight
+from .layers import rms_norm, rope, softmax_scale, weight, yarn_attn_factor
 
 
 class MLA(nn.Module):
@@ -52,10 +52,10 @@ def _mla_qkv(p: MLA, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor)
     B, S, _ = x.shape
     H, R, dn = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_nope_dim
     q = split_last(keep_grad_sharded(x @ p.wq), H, dn + cfg.qk_rope_dim)
-    q_nope, q_pe = q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    q_nope, q_pe = q[..., :dn], rope(q[..., dn:], positions, cfg)
     kv = x @ p.wkv_a
     c_kv = rms_norm(kv[..., :R], p.kv_norm, cfg.norm_eps)
-    k_pe = apply_rope(kv[..., R:], positions, cfg.rope_theta)          # (B, S, dr)
+    k_pe = rope(kv[..., R:], positions, cfg)                           # (B, S, dr)
     return q_nope, q_pe, c_kv, k_pe
 
 
@@ -68,6 +68,9 @@ def mla_train(p: MLA, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
     k_nope = split_last(keep_grad_sharded(c_kv @ p.wk_b), H, dn)
     v = split_last(keep_grad_sharded(c_kv @ p.wv_b), H, dv)
     q = torch.cat([q_nope, q_pe], dim=-1)
+    m2 = yarn_attn_factor(cfg)
+    if m2 != 1.0:                    # YaRN's m²: the kernel scales by (dn + dr)^-0.5 alone
+        q = q * m2
     k = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, H, dr)], dim=-1)
     # pad v's head dim up to the qk dim for the shared flash path, slice after;
     # both on the local shards (torch 2.11's DTensor gives constant_pad_nd's
@@ -109,7 +112,8 @@ def mla_decode(p: MLA, x: torch.Tensor, cfg: ModelConfig, cache: LatentCache,
     """Absorbed-matmul decode, x: (B, 1, M). Writes this token's latent and
     rope key, then attends over ``s ≤ cur`` in the latent space: scores
     q_nope·W_kb against ``c_kv`` plus q_pe against ``k_pe``, scaled by
-    (dn + dr)^-0.5; the latent output goes up through W_vb."""
+    (dn + dr)^-0.5 (times YaRN's m², ``softmax_scale``); the latent output
+    goes up through W_vb."""
     B = x.shape[0]
     H, R = cfg.num_heads, cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -133,7 +137,7 @@ def mla_decode(p: MLA, x: torch.Tensor, cfg: ModelConfig, cache: LatentCache,
     else:
         s = torch.einsum("bhr,bsr->bhs", q_lat, c_kv)
     s = s + torch.einsum("bhd,bsd->bhs", q_pe[:, 0].float(), k_pe)
-    s = s * (dn + dr) ** -0.5
+    s = s * softmax_scale(cfg, dn + dr)
     s = torch.where(valid[:, None, :], s, NEG_INF)
     o_lat = torch.einsum("bhs,bsr->bhr", torch.softmax(s, dim=-1), c_kv)
     out = torch.einsum("bhr,rhd->bhd", o_lat, wv_b)

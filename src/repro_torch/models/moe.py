@@ -35,13 +35,33 @@ are replicated onto every device first, so the routing, and with it the
 sort, slots and aux counts (plain tensors), is the global one, as the
 reference's default dispatch is; the expert products split as the expert
 weights are sharded.
+
+``cfg.moe_dropless`` (the port's own, ``configs/base.py`` ``PORT_ONLY``) keeps
+every pair, as DeepSeek serves: under a capacity a token's output would
+depend on which other sequences share its step, and at a prefill of 131,072
+tokens a capacity of T would be an E·T·M buffer of 34 GB a layer. The pairs,
+sorted by expert, run through the three expert products as grouped products
+over the sorted rows (``torch._grouped_mm``; each expert's rows end at an
+offset counted on the device), and each token's K rows are summed in order of
+k, weighted by their gates in f32, so the layer repeats bit for bit. No step
+waits for the host, so a decode step with it replays as a CUDA graph too.
+It serves; its gradient is not deterministic on the card (the gather of the
+sorted rows accumulates with atomics in the backward). ``cfg.norm_topk_prob``
+false takes the gates as the softmax router gives them, unnormalised.
+
+Every call adds its routing to a counter kept on the device
+(``MoE.routed``: pairs routed to each expert, and pairs dropped, summed over
+calls; one add a call, no host sync), which ``MoE.snapshot`` reads. The
+spans ``moe.route`` (router, top-k, sort), ``moe.experts`` (the expert
+products) and ``moe.combine`` (gates and the sum back to tokens) split the
+layer on a profiler's timeline.
 """
 
 from __future__ import annotations
 
 import math
 from types import SimpleNamespace
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +70,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..distributed.sharding import (flatten, is_dtensor, mesh_shape, reshape_replicated,
                                     settle, split_rows)
+from ..spans import span
 from .layers import swiglu, weight
 
 
@@ -74,6 +95,25 @@ class MoE(nn.Module):
             self.shared_wi = weight(M, Fs, device=device)
             self.shared_wg = weight(M, Fs, device=device)
             self.shared_wo = weight(Fs, M, device=device)
+        self.routed: Optional[torch.Tensor] = None    # (E + 1,) int64: pairs by expert, dropped
+
+    def count(self, record: torch.Tensor) -> None:
+        """Adds one call's (E + 1,) record (pairs routed to each expert, then
+        pairs dropped) to ``routed``, made on the record's device at first."""
+        if record.device.type == "meta":
+            return
+        if self.routed is None or self.routed.device != record.device:
+            self.routed = torch.zeros_like(record, dtype=torch.int64)
+        self.routed += record
+
+    def snapshot(self) -> Dict[str, float]:
+        """Pairs routed over every call so far, the most and the mean an expert
+        took, and the pairs dropped (a host sync: read it after serving)."""
+        if self.routed is None:
+            return {"pairs": 0, "most": 0, "mean": 0.0, "dropped": 0}
+        per = self.routed[:-1].cpu()
+        return {"pairs": int(per.sum()), "most": int(per.max()),
+                "mean": float(per.float().mean()), "dropped": int(self.routed[-1])}
 
 
 def capacity(tokens: int, cfg: ModelConfig) -> int:
@@ -163,36 +203,83 @@ def _dispatch_core(xt: torch.Tensor, p, cfg: ModelConfig, offset: int, E_loc: in
     all E experts with ``p.router``, keeps the pairs whose expert lies in
     [offset, offset + E_loc), capacity from T. Returns (y (T, M) f32, this
     slice's part of the output; aux, over the global experts)."""
-    T, M = xt.shape
-    E, K = cfg.num_experts, cfg.top_k
+    T = xt.shape[0]
     dev = xt.device
 
+    with span("moe.route"):
+        gate, expert_idx, counts, aux = _route(xt, p, cfg)
+        C = capacity(T, cfg)
+        local_e = expert_idx - offset
+        local_e = torch.where((local_e >= 0) & (local_e < E_loc), local_e, E_loc)
+        order, valid, slot, src, occupied, slot_map = _slots(local_e, E_loc, C)
+
+    with span("moe.experts"):
+        grouped = split_rows(_Dispatch.apply(xt, src, occupied, slot_map), E_loc, C)
+        h = torch.bmm(grouped, wi)                                    # (E_loc, C, M) in
+        g = torch.bmm(grouped, wg)
+        yg = flatten(torch.bmm(h * F.silu(g), wo), 0, 1)              # (E_loc·C, M)
+
+    with span("moe.combine"):
+        w_slot = torch.where(valid, gate.reshape(-1)[order], 0.0)
+        w_of_slot = torch.zeros(E_loc * C + 1, device=dev).index_put((slot,), w_slot)[:-1]
+        y = _Combine.apply(yg.float() * w_of_slot[:, None] * occupied[:, None], slot_map,
+                           src, occupied)
+    if isinstance(p, MoE) and not is_dtensor(xt):
+        routed = counts.long()
+        p.count(torch.cat([routed, (routed - C).clamp(min=0).sum()[None]]))
+    return y, aux
+
+
+def _route(xt: torch.Tensor, p, cfg: ModelConfig):
+    """(gates (T, K) f32, expert ids (T, K), pairs each global expert took (E,)
+    f32, aux): the softmax router's top-k, the gates renormalised to sum to 1
+    unless ``cfg.norm_topk_prob`` is false, and the load-balancing aux loss
+    (Switch-style, over the global experts)."""
+    T = xt.shape[0]
+    E, K = cfg.num_experts, cfg.top_k
     probs = torch.softmax(xt.float() @ p.router.float(), dim=-1)     # (T, E)
     gate, expert_idx = torch.topk(probs, K, dim=-1)                   # (T, K)
-    gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
+    if cfg.norm_topk_prob:
+        gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
     if is_dtensor(expert_idx):     # replicated: the routing is the same on every device
         expert_idx = expert_idx.to_local()
-
-    # load-balancing aux loss (Switch-style, over the global experts)
     flat_e = expert_idx.reshape(-1)                                   # (T·K,)
-    ones = torch.ones(T * K, device=dev)
-    ce = torch.zeros(E, device=dev).index_add_(0, flat_e, ones) / (T * K)
-    aux = cfg.router_aux_weight * E * torch.sum(probs.mean(dim=0) * ce)
+    ones = torch.ones(T * K, device=xt.device)
+    counts = torch.zeros(E, device=xt.device).index_add_(0, flat_e, ones)
+    aux = cfg.router_aux_weight * E * torch.sum(probs.mean(dim=0) * (counts / (T * K)))
+    return gate, expert_idx, counts, aux
 
-    C = capacity(T, cfg)
-    local_e = expert_idx - offset
-    local_e = torch.where((local_e >= 0) & (local_e < E_loc), local_e, E_loc)
-    order, valid, slot, src, occupied, slot_map = _slots(local_e, E_loc, C)
 
-    grouped = split_rows(_Dispatch.apply(xt, src, occupied, slot_map), E_loc, C)  # (E_loc, C, M)
-    h = torch.bmm(grouped, wi)
-    g = torch.bmm(grouped, wg)
-    yg = flatten(torch.bmm(h * F.silu(g), wo), 0, 1)                  # (E_loc·C, M)
-
-    w_slot = torch.where(valid, gate.reshape(-1)[order], 0.0)
-    w_of_slot = torch.zeros(E_loc * C + 1, device=dev).index_put((slot,), w_slot)[:-1]
-    y = _Combine.apply(yg.float() * w_of_slot[:, None] * occupied[:, None], slot_map, src,
-                       occupied)
+def _dropless(xt: torch.Tensor, p: MoE, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every (token, expert) pair of ``xt`` (T, M) through its expert: the
+    pairs stably sorted by expert, each expert's rows ending at ``ends[e]``
+    (counted on the device), the SwiGLU's three products grouped over those
+    rows, and each token's K rows weighted by their gates and summed in order
+    of k in f32. Returns (y (T, M) f32, aux)."""
+    if is_dtensor(xt):
+        raise NotImplementedError("the dropless dispatch runs on plain tensors, not on a mesh")
+    T = xt.shape[0]
+    E, K = cfg.num_experts, cfg.top_k
+    dev = xt.device
+    with span("moe.route"):
+        gate, expert_idx, counts, aux = _route(xt, p, cfg)
+        flat_e = expert_idx.reshape(-1)
+        order = torch.argsort(flat_e, stable=True)                    # pairs by expert
+        ends = torch.searchsorted(flat_e[order], torch.arange(E, device=dev, dtype=flat_e.dtype),
+                                  right=True, out_int32=True)         # (E,) row ends
+        row = torch.empty_like(order).scatter_(0, order, torch.arange(T * K, device=dev))
+    with span("moe.experts"):
+        rows = xt[order // K]                                         # (T·K, M) sorted
+        h = torch._grouped_mm(rows, p.wi, offs=ends)
+        g = torch._grouped_mm(rows, p.wg, offs=ends)
+        out = torch._grouped_mm(h * F.silu(g), p.wo, offs=ends)       # (T·K, M)
+    with span("moe.combine"):
+        row = row.view(T, K)                                          # pair (t, k)'s row
+        y = out[row[:, 0]].float() * gate[:, :1]
+        for k in range(1, K):
+            y = y + out[row[:, k]].float() * gate[:, k:k + 1]
+    p.count(torch.cat([counts.long(), (T * K - ends[-1:]).long()]))   # rows past the last end
     return y, aux
 
 
@@ -211,7 +298,7 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig
             return out
     B, S, M = x.shape
     xt = reshape_replicated(x, B * S, M)     # a step on a mesh: every token on every device
-    y, aux = _dispatch(xt, p, cfg)
+    y, aux = _dropless(xt, p, cfg) if cfg.moe_dropless else _dispatch(xt, p, cfg)
     if cfg.num_shared_experts:
         y = y + swiglu(xt, p.shared_wi, p.shared_wg, p.shared_wo).float()
     return reshape_replicated(y, B, S, M).to(x.dtype), aux

@@ -8,7 +8,9 @@ block is a pre-norm mixer plus a pre-norm FFN, as the reference's
 - mixer: GQA attention, MLA, the Mamba-2 SSM, or (``mixer = "hybrid"``)
   attention and the SSM in parallel, mixed ``0.5 · (attn + ssm)``;
 - FFN: the MoE when ``num_experts`` is set, else a SwiGLU MLP when ``d_ff``
-  is set, else nothing (the reference adds zero).
+  is set, else nothing (the reference adds zero). With the port's own
+  ``first_dense_layers`` (a published DeepSeek-V2), those leading layers
+  take a SwiGLU MLP of ``d_ff`` and the rest the MoE.
 
 The layer ``scan`` becomes a Python loop over an ``nn.ModuleList``. The
 reference's prompt-length cache plus splice becomes a prefill that writes
@@ -83,7 +85,7 @@ class Block(nn.Module):
 
     AXES = {"norm_mixer": ("embed",), "norm_ffn": ("embed",)}
 
-    def __init__(self, cfg: ModelConfig, *, device: torch.device) -> None:
+    def __init__(self, cfg: ModelConfig, *, device: torch.device, layer: int) -> None:
         super().__init__()
         self.cfg = cfg
         self.norm_mixer = weight(cfg.d_model, device=device)
@@ -92,9 +94,9 @@ class Block(nn.Module):
         self.attn = Attention(cfg, device=device) if cfg.uses_attention and not mla else None
         self.mla = MLA(cfg, device=device) if mla else None
         self.ssm = SSM(cfg, device=device) if cfg.uses_ssm else None
-        self.moe = MoE(cfg, device=device) if cfg.uses_moe else None
-        self.mlp = (MLP(cfg.d_model, cfg.d_ff, device=device)
-                    if cfg.d_ff and not cfg.uses_moe else None)
+        moe = cfg.is_moe_layer(layer)
+        self.moe = MoE(cfg, device=device) if moe else None
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, device=device) if cfg.d_ff and not moe else None
 
     def _mix(self, attn: Optional[torch.Tensor], ssm: Optional[torch.Tensor]
              ) -> torch.Tensor:
@@ -183,8 +185,8 @@ class Transformer(nn.Module):
         device = resolve_device(device, allow_meta=True)
         self.cfg = cfg
         self.embed = weight(cfg.padded_vocab, cfg.d_model, device=device)
-        self.blocks = nn.ModuleList(Block(cfg, device=device)
-                                    for _ in range(cfg.num_layers))
+        self.blocks = nn.ModuleList(Block(cfg, device=device, layer=layer)
+                                    for layer in range(cfg.num_layers))
         self.final_norm = weight(cfg.d_model, device=device)
         if not cfg.tie_embeddings:
             self.unembed = weight(cfg.d_model, cfg.padded_vocab, device=device)
@@ -287,6 +289,12 @@ class Transformer(nn.Module):
         last-position logits."""
         with span("prefill.step"):
             return self._logits(self._trunk(tokens_or_embeds, cache)[0][:, -1])
+
+    def routing_snapshot(self) -> Dict[int, Dict[str, float]]:
+        """Each MoE layer's ``MoE.snapshot()`` by layer index: pairs routed
+        over every call so far, the most and mean an expert took, pairs dropped."""
+        return {layer: blk.moe.snapshot() for layer, blk in enumerate(self.blocks)
+                if blk.moe is not None}
 
     def decode_graphs(self, cache: Cache) -> DecodeGraphs:
         """This model's decode graphs on ``cache`` and its steps' counts

@@ -32,6 +32,9 @@ The spans, and the spans each nests in:
   ``train.forward``, or ``train.backward`` where a block is recomputed), holding ``layer.attn`` (attention or MLA, with the
   cache write), ``layer.ssm`` (the SSM, with its state write) and
   ``layer.ffn`` (the FFN's norm, MLP or MoE and residual add);
+- ``moe.route`` (the router, top-k and the pairs' sort), ``moe.experts``
+  (the expert products) and ``moe.combine`` (the gates and the sum back to
+  each token), in ``layer.ffn`` (``models/moe.py``);
 - ``decode.logits``: the final norm and the head (in ``decode.step``);
 - ``prefill.step``: ``Transformer.prefill``;
 - ``train.forward``, ``train.backward``, ``train.optimizer``: the loss, its

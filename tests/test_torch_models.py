@@ -24,6 +24,7 @@ from repro.configs import get_reduced as ref_get_reduced  # noqa: E402
 from repro.models import decode_step, forward, init_cache, init_stack, prefill  # noqa: E402
 
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced  # noqa: E402
+from repro_torch.configs.base import port_only_at_defaults, shared_fields  # noqa: E402
 from repro_torch.models import from_reference_params, init_transformer  # noqa: E402
 
 ARCH = "qwen1.5-0.5b"
@@ -65,12 +66,14 @@ def tokens(seed, B, S, vocab):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_configs_copy_the_reference(arch):
     """Every arch of the reference's registry, in its order; each config
-    field for field and its derived counts equal."""
+    field for field (every field the reference's ``ModelConfig`` has) and its
+    derived counts equal, and the port's own fields at their defaults."""
     from repro.configs import ARCH_IDS as REF_ARCH_IDS
     assert ARCH_IDS == REF_ARCH_IDS
     for ours, theirs in ((get_config(arch), ref_get_config(arch)),
                          (get_reduced(arch), ref_get_reduced(arch))):
-        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+        assert shared_fields(ours) == dataclasses.asdict(theirs)
+        assert port_only_at_defaults(ours)
         for prop in ("padded_vocab", "uses_attention", "uses_ssm", "uses_moe", "d_inner",
                      "sub_quadratic"):
             assert getattr(ours, prop) == getattr(theirs, prop), prop
@@ -78,6 +81,28 @@ def test_configs_copy_the_reference(arch):
         assert ours.active_param_count() == theirs.active_param_count()
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
+
+
+def test_published_deepseek_is_the_benchmarks_configuration():
+    """``bench/configs/deepseek-v2-lite-16b.json``'s ``model`` is the port's
+    ``PUBLISHED`` field for field; it differs from the reference's twin only
+    in the published structure (the dense first layer, gates, dropless
+    routing, YaRN, the norm's eps) and where it is sharded."""
+    import json
+    import os
+
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.configs.deepseek_v2_lite_16b import CONFIG, PUBLISHED
+    path = os.path.join(os.path.dirname(__file__), "..", "bench", "configs",
+                        "deepseek-v2-lite-16b.json")
+    with open(path) as f:
+        model = json.load(f)["model"]
+    assert ModelConfig(**model) == PUBLISHED
+    differ = {k for k, v in dataclasses.asdict(PUBLISHED).items()
+              if v != getattr(CONFIG, k)}
+    assert differ == {"d_ff", "norm_eps", "sharding_overrides", "first_dense_layers",
+                      "norm_topk_prob", "moe_dropless", "yarn_factor",
+                      "yarn_original_max_pos", "yarn_mscale", "yarn_mscale_all_dim"}
 
 
 def test_conversion_keeps_every_leaf(models):

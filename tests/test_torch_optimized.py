@@ -44,6 +44,7 @@ from repro.models.attention import flash_attention_jnp  # noqa: E402
 
 from repro_torch.configs import ARCH_IDS, ModelConfig, get_config  # noqa: E402
 from repro_torch.configs import optimized as opt  # noqa: E402
+from repro_torch.configs.base import port_only_at_defaults, shared_fields  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention_op  # noqa: E402
 
 FLASH_TOL = 2e-5      # f32, tests/test_kernels.py's flash tolerance
@@ -63,8 +64,8 @@ def test_optimize_flips_the_references_fields(arch, only):
     ref_cfg = ref_config(arch)
     port_cfg = get_config(arch)
     want = dataclasses.asdict(ref_opt.optimize(ref_cfg, only=set(only)))
-    got = dataclasses.asdict(opt.optimize(port_cfg, only=set(only)))
-    assert got == want
+    got = opt.optimize(port_cfg, only=set(only))
+    assert shared_fields(got) == want and port_only_at_defaults(got)
     if not only:
         assert opt.optimize(port_cfg, only=set()) == port_cfg
 
@@ -74,7 +75,7 @@ def test_default_is_the_ports_own_set(arch):
     cfg = get_config(arch)
     assert opt.optimize(cfg) == opt.optimize(cfg, only=set(opt.DEFAULT_ON))
     want = ref_opt.optimize(ref_config(arch), only=set(opt.DEFAULT_ON))
-    assert dataclasses.asdict(opt.optimize(cfg)) == dataclasses.asdict(want)
+    assert shared_fields(opt.optimize(cfg)) == dataclasses.asdict(want)
 
 
 def _terms(compute, memory, min_memory, collective) -> dict:
@@ -229,7 +230,7 @@ def test_attention_train_under_the_knob_matches_the_reference(knob, arch, S):
     ref_cfg = ref_opt.optimize(tp.ref_get_reduced(arch), only={knob})
     port_cfg = opt.optimize(ModelConfig(**dataclasses.asdict(tp.ref_get_reduced(arch))),
                             only={knob})
-    assert dataclasses.asdict(ref_cfg) == dataclasses.asdict(port_cfg)
+    assert dataclasses.asdict(ref_cfg) == shared_fields(port_cfg)
     _, params, model = tp.models(arch)
     leaves = {n: np.asarray(a[0], np.float32) for n, a in params["blocks"]["attn"].items()}
     mod = copy.deepcopy(model.blocks[0].attn).float()      # the reference's layer 0
