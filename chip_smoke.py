@@ -7,8 +7,8 @@ Phases, each printing one JSON line:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: compile every ``src/repro_torch/csrc/*.cu`` (flash attention forward and
-   backward, paged attention, the SSD scan forward and backward) with nvcc for
-   sm_90a, one nvcc per source, all started together;
+   backward, paged attention, ring attention, the SSD scan forward and backward)
+   with nvcc for sm_90a, one nvcc per source, all started together;
 3. model: the analytic backend's calibration against the threaded engine
    (``repro_torch.model.run_calibration``) at the reference suite's point, 4
    clients, 2 donors, 1 worker, paced 1-page writes, with the clients' buffers
@@ -27,7 +27,11 @@ Phases, each printing one JSON line:
    attention also at a causal prompt of 4096 tokens, at deepseek's prefill at
    head dim 192 and at hymba's, GQA 25/5 with a 1024-token window; paged
    attention also at qwen2-moe's and qwen2.5-32b's decode, D 128, at its edge
-   cases (GQA groups 1, 2, 5, 7 and 8) and at 8192 tokens of context; the scan
+   cases (GQA groups 1, 2, 5, 7 and 8) and at 8192 tokens of context; ring
+   attention at hymba-1.5b.decode's ring (B 64, 1024 slots, GQA 25/5) in bf16
+   and f32 and at its edge cases (each instance's (D, G) in both dtypes, one
+   valid slot, B 1, empty splits, valid slots across the ring's end), each run
+   twice, equal bits, within a bf16 ulp (f32: PAGED_TOL's); the scan
    also at hymba's prefill, 50 heads, N 16); the flash backward and the
    forward's LSE at the reference suite's shapes, the training shape,
    qwen1.5-0.5b's heads, hymba's window, deepseek's D 192, and at S 512 and D
@@ -119,7 +123,9 @@ Phases, each printing one JSON line:
    shape), at head dim 192 and at qwen2-moe-a2.7b's training shape (D 128;
    library: SDPA's backward), paged attention also at qwen2-moe's and
    qwen2.5-32b's (G 5) decode and at 8192 tokens of context (planned
-   at R = 4 and R = 1) and at several split counts, the scan also at hymba's
+   at R = 4 and R = 1) and at several split counts, ring attention at
+   hymba-1.5b.decode's ring (library: SDPA with ``enable_gqa`` and the boolean
+   mask) and at 1 to 16 splits at B 64 and at B 4, the scan also at hymba's
    prefill, the scan's training forward (y in f32 on the CUDA cores, the
    state sweep on the FP64 tensor cores) and backward (FP64 tensor cores)
    at mamba2-780m's training shape (B 8, S 512), the backward also at
@@ -143,8 +149,8 @@ Phases, each printing one JSON line:
    the weights, the prefill step's logits against ``Transformer.prefill``
    and every decode step's against the same steps, each with the plain
    versions swapped in (``plain_kernels``), held to 0.05. The two
-   ``long_500k`` decodes launch no kernel (the SSM state and hymba's ring are
-   plain torch in both packages), so there is nothing to swap: their logits
+   ``long_500k`` decodes name no kernel (the SSM state is plain torch in both
+   packages; hymba's ring kernel is held in ``hybrid_decode``): their logits
    are held finite and of the vocabulary's width, and ``hybrid_decode`` and
    ``serve_ssm`` hold the same decode code against a forward;
 25. optimized: the reference's perf knobs (``repro_torch.configs.optimized``)
@@ -204,6 +210,7 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_ref, flash_attention_bwd_ref, flash_attention_online)
 from repro_torch.kernels.paged_attention import ops as pa  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
+from repro_torch.kernels.ring_attention import ops as ra  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd  # noqa: E402
 from repro_torch.kernels.ssd_scan.ops import ssd_bwd_work, ssd_work  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
@@ -226,6 +233,7 @@ FP64_TC_FLOPS = 67e12
 ARCH, BATCH, PROMPT, GEN, PAGE_TOKENS = "qwen1.5-0.5b", 4, 64, 32, 16
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 PAGED_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+RING_F32_TOL = PAGED_TOL[torch.float32]   # bf16 is held to one bf16 ulp (bf16_ulps)
 DECODE_VS_FORWARD_TOL = 0.05      # tests/test_models.py's bf16 tolerance
 SSM_ARCH, SSM_PROMPT, SSM_GEN = "mamba2-780m", 512, 256
 SSD_TOL = 1e-4                    # tests/test_kernels.py::test_ssd_vs_ref
@@ -254,6 +262,8 @@ LONG_PROMPT = (1, 4096, 16, 64)
 # A long decode context (B, tokens, page tokens): the serving shape's 1.8 MB
 # pool sits in L2; 134 MB of K/V a layer does not, as at long-context serving.
 LONG_DECODE = (4, 8192, 16)
+# hymba-1.5b.decode's ring (batch, position): every sequence past its window.
+RING_DECODE = (64, 2047)
 # The other archs' full-width serving runs (phase serve_archs): batch, prompt,
 # decode steps, and the launches each kernel must show. hymba's prompt of
 # 1280 is a multiple of its 256-token scan chunk, longer than its 1024-token
@@ -262,27 +272,34 @@ MLA_ARCH, HYBRID_ARCH, MOE_ARCH = "deepseek-v2-lite-16b", "hymba-1.5b", "qwen2-m
 SERVE_ARCHS = {   # arch: (batch, prompt, gen, {kernel: launches}); serving never
     # launches a backward
     "rdmabox-paper-100m": (4, 64, 32, {"flash_attention": 12, "flash_attention_bwd": 0,
-                                       "paged_attention": 384, "ssd_scan": 0,
+                                       "paged_attention": 384, "ring_attention": 0,
+                                       "ssd_scan": 0,
                                        "ssd_scan_bwd": 0}),
     "musicgen-large": (4, 64, 32, {"flash_attention": 48, "flash_attention_bwd": 0,
-                                   "paged_attention": 1536, "ssd_scan": 0,
+                                   "paged_attention": 1536, "ring_attention": 0, "ssd_scan": 0,
                                    "ssd_scan_bwd": 0}),
     MOE_ARCH: (4, 64, 32, {"flash_attention": 24, "flash_attention_bwd": 0,
-                           "paged_attention": 768, "ssd_scan": 0, "ssd_scan_bwd": 0}),
+                           "paged_attention": 768, "ring_attention": 0, "ssd_scan": 0,
+                           "ssd_scan_bwd": 0}),
     HYBRID_ARCH: (4, 1280, 32, {"flash_attention": 32, "flash_attention_bwd": 0,
-                                "paged_attention": 0, "ssd_scan": 32, "ssd_scan_bwd": 0}),
+                                "paged_attention": 0, "ring_attention": 1024, "ssd_scan": 32,
+                                "ssd_scan_bwd": 0}),
     MLA_ARCH: (4, 64, 32, {"flash_attention": 27, "flash_attention_bwd": 0,
-                           "paged_attention": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}),
+                           "paged_attention": 0, "ring_attention": 0, "ssd_scan": 0,
+                           "ssd_scan_bwd": 0}),
     # the 32-35 B archs at full depth: 64.8-70.4 GB of bf16 weights beside
     # init_weights' one f32 draw of the largest tensor (serve_bytes)
     "command-r-35b": (4, 64, 32, {"flash_attention": 40, "flash_attention_bwd": 0,
-                                  "paged_attention": 1280, "ssd_scan": 0, "ssd_scan_bwd": 0}),
+                                  "paged_attention": 1280, "ring_attention": 0, "ssd_scan": 0,
+                                  "ssd_scan_bwd": 0}),
     "qwen1.5-32b": (4, 64, 32, {"flash_attention": 64, "flash_attention_bwd": 0,
-                                "paged_attention": 2048, "ssd_scan": 0, "ssd_scan_bwd": 0}),
+                                "paged_attention": 2048, "ring_attention": 0, "ssd_scan": 0,
+                                "ssd_scan_bwd": 0}),
     "qwen2.5-32b": (4, 64, 32, {"flash_attention": 64, "flash_attention_bwd": 0,
-                                "paged_attention": 2048, "ssd_scan": 0, "ssd_scan_bwd": 0}),
+                                "paged_attention": 2048, "ring_attention": 0, "ssd_scan": 0,
+                                "ssd_scan_bwd": 0}),
     "llava-next-34b": (4, 64, 32, {"flash_attention": 60, "flash_attention_bwd": 0,
-                                   "paged_attention": 1920, "ssd_scan": 0,
+                                   "paged_attention": 1920, "ring_attention": 0, "ssd_scan": 0,
                                    "ssd_scan_bwd": 0}),
 }
 BIG_ARCHS = ("command-r-35b", "qwen1.5-32b", "qwen2.5-32b", "llava-next-34b")
@@ -554,6 +571,21 @@ def phase_compare(dev: torch.device) -> dict:
     report["paged"].append({"case": "long context", "dtype": "torch.bfloat16",
                             "max_abs_err": err})
     del q, kv, lengths, plans
+    report["ring"] = [check_ring_case(case) for case in ring_edge_cases(dev, gen)]
+    q, k, v, valid = ring_decode_inputs(dev, gen)
+    out = ra.ring_attention(q, k, v, valid, q.shape[2] ** -0.5)
+    plain = ra.ring_attention_plain(q, k, v, valid, q.shape[2] ** -0.5)
+    ulps = bf16_ulps(out, plain)
+    if not ulps <= 1:
+        raise AssertionError(f"ring serving shape: {ulps:.2f} bf16 ulps off the plain version")
+    main_err[("ring", torch.bfloat16)] = (out.float() - plain.float()).abs().max().item()
+    report["ring"].append({"case": f"serving: {HYBRID_ARCH} decode", "ulps": ulps})
+    q, k, v, valid = ring_decode_inputs(dev, gen, torch.float32)
+    err = max_err(ra.ring_attention(q, k, v, valid, q.shape[2] ** -0.5),
+                  ra.ring_attention_plain(q, k, v, valid, q.shape[2] ** -0.5), RING_F32_TOL,
+                  "ring f32 serving shape")
+    report["ring"].append({"case": f"serving: {HYBRID_ARCH} decode, f32", "max_abs_err": err})
+    del q, k, v, valid, out, plain
     torch.cuda.empty_cache()
     report["ssd"], main_err[("ssd", torch.float32)], main_err[("ssd_hybrid", torch.float32)] \
         = compare_ssd(dev, gen)
@@ -821,6 +853,93 @@ def check_paged_case(case: dict, tol: float) -> dict:
             "heads_per_cta": heads, "splits": splits, "live_blocks": live, "max_abs_err": err}
 
 
+def bf16_ulps(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """The largest |out − ref| in bf16 ulps of the larger of the two: 1.0 is
+    one rounding step apart (a bf16 value has 8 significant bits). A value
+    that cancels to under 1/256 of ref's largest is measured in the ulps of
+    that level: it carries the absolute error of the f32 sums that made it
+    (about 1e-6 of the output's scale), which no order of summation avoids."""
+    a, b = out.float(), ref.float()
+    if not torch.isfinite(a).all():
+        raise AssertionError("non-finite output")
+    mag = torch.maximum(torch.maximum(a.abs(), b.abs()), b.abs().max() / 256)
+    ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
+    return ((a - b).abs() / torch.where(mag > 0, ulp, 1.0)).max().item()
+
+
+def ring_inputs(dev, gen, B: int, H: int, Kh: int, D: int, length: int, cur, *,
+                layers: int = 1, dtype=torch.bfloat16):
+    """q, a ring of K and V in ``dtype`` (layer ``layers − 1`` of that many) and the
+    ring cache's mask for positions ``cur`` (``SlotCache.plan_step``'s rule:
+    slot s counts while its age (cur % length − s) mod length is below
+    min(cur + 1, length))."""
+    cur = np.asarray(cur, np.int64)
+    age = (cur[:, None] % length - np.arange(length)[None, :]) % length
+    valid = torch.from_numpy(age < np.minimum(cur + 1, length)[:, None]).to(dev)
+    q = torch.randn(B, H, D, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(layers, B, length, Kh, D, generator=gen, device=dev).to(dtype)[-1]
+            for _ in range(2))
+    return q, k, v, valid
+
+
+def ring_decode_inputs(dev, gen, dtype=torch.bfloat16, B: int = RING_DECODE[0]):
+    """``hymba-1.5b.decode``'s ring in one layer: 64 (or ``B``) sequences past
+    their 1024-token window (every slot valid), hymba's heads."""
+    cfg = get_config(HYBRID_ARCH)
+    return ring_inputs(dev, gen, B, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                       cfg.window, np.full(B, RING_DECODE[1]), dtype=dtype)
+
+
+def ring_edge_cases(dev, gen):
+    """The ring kernel's edge cases, in bf16 and f32: each instance's (D, G) on
+    a wrapped ring whose length is no multiple of a stage, one valid slot, B 1
+    at hymba's heads, forced splits of which some hold no valid slot, valid
+    slots straddling the ring's end, a ring view at layer 1 of 2. Yields dicts
+    of the wrapper's arguments plus ``what`` and ``splits`` (None: the
+    wrapper's choice)."""
+    def case(what, B, H, Kh, D, length, cur, *, splits=None, valid=None, **kw):
+        q, k, v, mask = ring_inputs(dev, gen, B, H, Kh, D, length, cur, dtype=dtype, **kw)
+        if valid is not None:
+            mask = valid.to(dev)
+        return {"what": f"{what}, {str(dtype)[6:]}", "q": q, "k": k, "v": v, "valid": mask,
+                "splits": splits}
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for D, G in ra.INSTANCES:
+            yield case(f"G {G} D {D}", 2, 2 * G, 2, D, 200, [150, 450])
+        yield case("one valid slot", 4, 10, 2, 64, 256, [0, 0, 0, 0])
+        yield case("B 1, hymba's heads", 1, 25, 5, 64, 1024, [1500])
+        yield case("forced splits, empty splits", 3, 10, 2, 64, 1024, [700, 5, 100], splits=8)
+        straddle = torch.zeros(2, 300, dtype=torch.bool)
+        straddle[:, 280:] = straddle[:, :45] = True
+        yield case("valid slots across the end", 2, 10, 2, 64, 300, [0, 0], valid=straddle,
+                   splits=2)
+        yield case("ring layer 1 of 2", 2, 16, 2, 128, 96, [95, 40], layers=2)
+
+
+def check_ring_case(case: dict) -> dict:
+    """One edge case through the kernel twice: equal bits, and within a bf16
+    ulp of the plain version (f32: within RING_F32_TOL)."""
+    q, k, v, valid = (case[n] for n in ("q", "k", "v", "valid"))
+    B, H, D = q.shape
+    length, Kh = k.shape[1], k.shape[2]
+    S = case["splits"] or ra.split_count(B * Kh, length, ra.sm_count(q.device))
+    out = ra.ring_attention(q, k, v, valid, D ** -0.5, splits=S)
+    again = ra.ring_attention(q, k, v, valid, D ** -0.5, splits=S)
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"ring {case['what']}: two runs differ")
+    plain = ra.ring_attention_plain(q, k, v, valid, D ** -0.5)
+    row = {"case": case["what"], "B": B, "H": H, "Kh": Kh, "D": D, "slots": length,
+           "q": str(q.dtype), "splits": S}
+    if q.dtype == torch.float32:
+        return {**row, "max_abs_err": max_err(out, plain, RING_F32_TOL, f"ring {case['what']}")}
+    ulps = bf16_ulps(out, plain)
+    if not ulps <= 1:
+        raise AssertionError(f"ring {case['what']}: {ulps:.2f} bf16 ulps off the plain version")
+    return {**row, "ulps": ulps}
+
+
 @torch.no_grad()
 def phase_serve(dev: torch.device) -> dict:
     cfg = get_config(ARCH)
@@ -834,7 +953,8 @@ def phase_serve(dev: torch.device) -> dict:
     torch.cuda.synchronize()
     launches = read_launches()
     want = {"flash_attention": cfg.num_layers, "flash_attention_bwd": 0,
-            "paged_attention": cfg.num_layers * GEN, "ssd_scan": 0, "ssd_scan_bwd": 0}
+            "paged_attention": cfg.num_layers * GEN, "ring_attention": 0,
+            "ssd_scan": 0, "ssd_scan_bwd": 0}
     if launches != want:
         raise AssertionError(f"serving path launches {launches}, want {want}")
     logits = res.decode_logits.float()
@@ -858,7 +978,8 @@ def phase_serve(dev: torch.device) -> dict:
 # kernel → (wrapper module, its counter): each adds one where it launches
 LAUNCH_COUNTERS = {"flash_attention": (fa, "launches"),
                    "flash_attention_bwd": (fa, "bwd_launches"),
-                   "paged_attention": (pa, "launches"), "ssd_scan": (ssd, "launches"),
+                   "paged_attention": (pa, "launches"), "ring_attention": (ra, "launches"),
+                   "ssd_scan": (ssd, "launches"),
                    "ssd_scan_bwd": (ssd, "bwd_launches")}
 
 
@@ -966,9 +1087,9 @@ def phase_serve_archs(smi: str) -> dict:
 @contextlib.contextmanager
 def plain_kernels():
     """Within the block, flash attention and the scan (each forward and
-    backward) and paged attention run their plain versions (those the CPU
-    path runs) on the card's tensors, and launch nothing."""
-    saved = fa._launch, fa._launch_bwd, ssd._launch, ssd._launch_bwd, pa._launch
+    backward), paged attention and ring attention run their plain versions
+    (those the CPU path runs) on the card's tensors, and launch nothing."""
+    saved = fa._launch, fa._launch_bwd, ssd._launch, ssd._launch_bwd, pa._launch, ra._launch
     fa._launch = lambda q, k, v, causal, window, with_lse=False: flash_attention_online(
         q, k, v, causal=causal, window=window, q_offset=k.shape[1] - q.shape[1],
         return_lse=with_lse)
@@ -980,10 +1101,12 @@ def plain_kernels():
         x, Bm, Cm, dt, A, states, dy, dh, chunk=chunk)
     pa._launch = lambda q, kv, starts, valid, lengths, R, *launch_shape: (
         pa.paged_attention_plain(q, kv, starts, valid, lengths, pages_per_block=R))
+    ra._launch = lambda q, k, v, valid, scale, splits: ra.ring_attention_plain(
+        q, k, v, valid, scale)
     try:
         yield
     finally:
-        fa._launch, fa._launch_bwd, ssd._launch, ssd._launch_bwd, pa._launch = saved
+        fa._launch, fa._launch_bwd, ssd._launch, ssd._launch_bwd, pa._launch, ra._launch = saved
 
 
 # (run, dtype, plain): the serving path in bf16, the same with its prefill
@@ -1023,6 +1146,9 @@ def decode_vs_forward(cfg, prompt: int, steps: int, seed: int) -> dict:
             launched[run] = read_launches()
         if (launched[run]["flash_attention"] == 0) != plain:
             raise AssertionError(f"{run}: flash launches {launched[run]}")
+        ring = cfg.num_layers * steps if cfg.window and not plain else 0
+        if launched[run]["ring_attention"] != ring:   # every window layer's decode, f32 too
+            raise AssertionError(f"{run}: ring launches {launched[run]}, not {ring}")
         dvf[run] = rel_err(fwd[run], dec)
         del cache, dec
     out = {"decode_vs_forward": dvf, "launches": launched,
@@ -1123,7 +1249,7 @@ def phase_serve_ssm() -> dict:
     torch.cuda.synchronize()
     launches = read_launches()
     want = {"flash_attention": 0, "flash_attention_bwd": 0, "paged_attention": 0,
-            "ssd_scan": cfg.num_layers, "ssd_scan_bwd": 0}
+            "ring_attention": 0, "ssd_scan": cfg.num_layers, "ssd_scan_bwd": 0}
     if launches != want:
         raise AssertionError(f"SSM serving path launches {launches}, want {want}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1427,6 +1553,48 @@ def paged_row(q, kv, lengths, plan, live_blocks, launches: int, err: float, case
     }
 
 
+def ring_row(dev, gen, launches: int, err: float) -> dict:
+    """The ring kernel's row of the kernels line at ``hymba-1.5b.decode``'s
+    shape (B 64, 1024 slots, H 25, Kh 5, D 64, bf16), also at 1 to 16 splits
+    there and at B 4 (serve_archs' batch), where ``split_count`` splits. Its
+    library call is SDPA with ``enable_gqa`` and the boolean mask over strided
+    views of the ring."""
+    q, k, v, valid = ring_decode_inputs(dev, gen)
+    B, H, D = q.shape
+    length, Kh = k.shape[1], k.shape[2]
+    scale = D ** -0.5
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + valid.numel()
+    rb, rby = bound_ms(nbytes, 4 * D * H * B * length, q.dtype)
+    q_lib, k_lib, v_lib, mask = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), \
+        valid[:, None, None, :]
+    return {
+        "name": "ring_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/ring_attention.cu",
+        "replaces": "none: src/repro/models/attention.py attention_decode's plain products",
+        "launches": launches, "max_abs_err": err,
+        "ms": device_ms(lambda: ra.ring_attention(q, k, v, valid, scale)),
+        "plain_ms": device_ms(lambda: ra.ring_attention_plain(q, k, v, valid, scale), iters=5),
+        "bound_ms": rb, "bound_by": rby, "bytes": nbytes,
+        "library_ms": device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q_lib, k_lib, v_lib, attn_mask=mask, enable_gqa=True)),
+        "splits": ra.split_count(B * Kh, length, ra.sm_count(dev)),
+        "ms_by_splits": {f"B {b}": ring_ms_by_splits(*inputs)
+                         for b, inputs in ((B, (q, k, v, valid)),
+                                           (4, ring_decode_inputs(dev, gen, B=4)))},
+        "case": f"serving: {HYBRID_ARCH} decode",
+        "shape": {"q": list(q.shape), "ring": list(k.shape), "dtype": str(q.dtype)},
+    }
+
+
+def ring_ms_by_splits(q, k, v, valid) -> dict:
+    """The ring kernel's ms a call at 1 to 16 splits, and the split count
+    ``split_count`` picks there."""
+    B, _, D = q.shape
+    picked = ra.split_count(B * k.shape[2], k.shape[1], ra.sm_count(q.device))
+    return {"picked": picked, **{S: device_ms(lambda: ra.ring_attention(
+        q, k, v, valid, D ** -0.5, splits=S)) for S in (1, 2, 4, 8, 16)}}
+
+
 def phase_kernels(dev: torch.device, main_err: dict, launches: dict,
                   kv_spill_launches: int, arch_launches: dict, train_launches: dict,
                   grads_launches: dict, ssm_train_launches: dict,
@@ -1519,6 +1687,9 @@ def phase_kernels(dev: torch.device, main_err: dict, launches: dict,
     paged_long["launches_kv_spill"] = kv_spill_launches
     del pq, pkv, lengths, plans
     torch.cuda.empty_cache()
+    ring = ring_row(dev, gen, arch_launches[HYBRID_ARCH]["ring_attention"],
+                    main_err[("ring", dt)])
+    torch.cuda.empty_cache()
     scan = scan_row(dev, gen, ssd_serving_shape(), launches["ssd_scan"],
                     main_err[("ssd", torch.float32)], f"serving: {SSM_ARCH} prefill")
     scan_hybrid = scan_row(dev, gen, ssd_hybrid_shape(),
@@ -1544,7 +1715,7 @@ def phase_kernels(dev: torch.device, main_err: dict, launches: dict,
         f"train_grads: {HYBRID_ARCH} backward, N {hc.ssm_state}")
     emit({"kernels": [flash, flash_long, flash_mla, flash_hybrid, flash_long_mla, flash_train,
                       flash_bwd, flash_bwd_heads, flash_bwd_mla, flash_bwd_moe, paged,
-                      paged_moe, paged_gqa, paged_long, scan, scan_hybrid, scan_train,
+                      paged_moe, paged_gqa, paged_long, ring, scan, scan_hybrid, scan_train,
                       scan_bwd, scan_bwd_hybrid, *opt_rows]})
 
 
@@ -1587,7 +1758,8 @@ def phase_serve_spill() -> dict:
     torch.cuda.synchronize()
     launches = read_launches()
     want = {"flash_attention": cfg.num_layers, "flash_attention_bwd": 0,
-            "paged_attention": cfg.num_layers * GEN, "ssd_scan": 0, "ssd_scan_bwd": 0}
+            "paged_attention": cfg.num_layers * GEN, "ring_attention": 0,
+            "ssd_scan": 0, "ssd_scan_bwd": 0}
     if launches != want:
         raise AssertionError(f"serve --spill launches {launches}, want {want}")
     sp = res.spill
@@ -1813,7 +1985,8 @@ def phase_examples() -> None:
     ends_with(out, "SERVING DONE", "serve_paged")
     gen = served.decode_logits.shape[1]
     want = {"flash_attention": cfg.num_layers, "flash_attention_bwd": 0,
-            "paged_attention": cfg.num_layers * gen, "ssd_scan": 0, "ssd_scan_bwd": 0}
+            "paged_attention": cfg.num_layers * gen, "ring_attention": 0,
+            "ssd_scan": 0, "ssd_scan_bwd": 0}
     if launches != want or not launches["paged_attention"]:
         raise AssertionError(f"serve_paged launches {launches}, want {want}")
     if served.spill is None or served.spill.kv.pool.device.type != "cuda" or not same_bytes(
@@ -1933,7 +2106,7 @@ def train_launch_counts(cfg, steps: int, forwards: int = 1) -> dict:
     attn = cfg.num_layers if cfg.uses_attention else 0
     scan = cfg.num_layers if cfg.uses_ssm else 0
     return {"flash_attention": forwards * attn * steps, "flash_attention_bwd": attn * steps,
-            "paged_attention": 0, "ssd_scan": forwards * scan * steps,
+            "paged_attention": 0, "ring_attention": 0, "ssd_scan": forwards * scan * steps,
             "ssd_scan_bwd": scan * steps}
 
 
@@ -2985,7 +3158,7 @@ def opt_scan(smi: str, mesh, run, launches: dict) -> list:
         model.requires_grad_(False)
         del opt
         want_serve = {"flash_attention": 0, "flash_attention_bwd": 0, "paged_attention": 0,
-                      "ssd_scan": L, "ssd_scan_bwd": 0}
+                      "ring_attention": 0, "ssd_scan": L, "ssd_scan_bwd": 0}
         if serve_launches != want_serve or not torch.isfinite(logits).all():
             raise AssertionError(f"optimized {SSM_ARCH} {knob}: prefill launches "
                                  f"{serve_launches}, want {want_serve}, or logits not finite")

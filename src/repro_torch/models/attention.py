@@ -7,8 +7,10 @@ Twin of ``repro/models/attention.py``. Where the reference prefills with
 two kernels that compute the same functions: ``flash_attention_op``
 (prefill, with the config's window) and ``paged_attention`` (decode). On
 CPU tensors both run their plain versions. The reference's windowed decode
-reads its ring buffer with plain products, not a kernel, and so does the
-port's ``RingKVCache`` (the paged kernel has no window mask).
+reads its ring buffer with plain products, not a kernel; the port's
+``RingKVCache`` reads it with a kernel of its own, ``ring_attention``, which
+computes those products' function in f32 from the bf16 ring (the paged kernel
+has no window mask).
 
 The reference's attention knobs (``configs/optimized.py``) reach the plain
 version only: ``attn_q_block``/``attn_kv_block`` (``blocks``) set its tiles,
@@ -45,6 +47,7 @@ from ..distributed.sharding import (Shards, flatten, keep_grad_sharded, on_local
 from ..kernels.flash_attention.ops import flash_attention_op
 from ..kernels.paged_attention.ops import (count_live_blocks, live_descriptors,
                                            paged_attention, plan_blocks)
+from ..kernels.ring_attention.ops import ring_attention
 from ..memory.kv_cache import PageAllocator
 from .layers import apply_rope, weight
 
@@ -414,16 +417,11 @@ class RingKVCache(SlotCache):
                v: torch.Tensor) -> torch.Tensor:
         """q (B, H, D), k, v (B, Kh, D): writes this token's k/v at its ring
         slot, then attends over the window in f32, as the reference's
-        ``attention_decode`` does. Returns (B, H, D) in q's dtype."""
+        ``attention_decode`` does, through ``ring_attention``. Returns
+        (B, H, D) in q's dtype."""
         self.write_step(layer, plan, k, v)
-        kc, vc = (buf[layer].float() for buf in self.bufs)     # (B, length, Kh, D)
-        B, H, D = q.shape
-        Kh = kc.shape[2]
-        qh = q.reshape(B, Kh, H // Kh, D).float()
-        s = torch.einsum("bkgd,bskd->bkgs", qh, kc) * D ** -0.5
-        s = torch.where(plan.valid[:, None, None, :], s, NEG_INF)
-        out = torch.einsum("bkgs,bskd->bkgd", torch.softmax(s, dim=-1), vc)
-        return out.reshape(B, H, D).to(q.dtype)
+        kc, vc = (buf[layer] for buf in self.bufs)             # (B, length, Kh, D)
+        return ring_attention(q, kc, vc, plan.valid, q.shape[-1] ** -0.5)
 
 
 def attention_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,

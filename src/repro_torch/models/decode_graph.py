@@ -63,10 +63,11 @@ import torch
 from ..distributed.sharding import is_dtensor
 from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.paged_attention import ops as paged_ops
+from ..kernels.ring_attention import ops as ring_ops
 from ..kernels.ssd_scan import ops as ssd_ops
 from ..spans import span
 
-COUNTED = (paged_ops, flash_ops, ssd_ops)      # wrappers whose ``launches`` count kernels
+COUNTED = (paged_ops, flash_ops, ssd_ops, ring_ops)   # wrappers whose ``launches`` count kernels
 WARM_UP = "warm-up of the capture stream"
 AHEAD = 2                  # replays the host may have queued before it waits
 

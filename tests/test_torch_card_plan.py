@@ -82,7 +82,7 @@ def test_train_launch_counts_take_the_cut_config(cs):
     hybrid = replace(get_config("hymba-1.5b"), num_layers=3)
     assert cs.train_launch_counts(hybrid, 2) == {
         "flash_attention": 6, "flash_attention_bwd": 6, "paged_attention": 0,
-        "ssd_scan": 6, "ssd_scan_bwd": 6}
+        "ring_attention": 0, "ssd_scan": 6, "ssd_scan_bwd": 6}
     ssm = get_config("mamba2-780m")
     assert cs.train_launch_counts(ssm, 1, forwards=2)["ssd_scan"] == 2 * ssm.num_layers
 

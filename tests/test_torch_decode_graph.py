@@ -16,9 +16,9 @@ On the CPU:
 On the card (skipped here): graph-replayed logits equal the eager body's bit
 for bit over 48 steps of a small paged model that crosses several
 ``live_blocks`` keys and a turn reset, and over a ring + SSM hybrid through
-the ring's wrap; every arch of the registry replays its decode bit for bit;
-a returned logits tensor is not changed by the next step. This file imports
-no JAX, so on a card
+the ring's wrap (the reduced hymba's through the ring kernel); every arch of
+the registry replays its decode bit for bit; a returned logits tensor is not
+changed by the next step. This file imports no JAX, so on a card
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_decode_graph.py
 """
@@ -34,6 +34,7 @@ torch.set_num_threads(1)   # small shapes; leave the cores to parallel test work
 
 from repro_torch.configs import ARCH_IDS, ModelConfig, get_reduced  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa  # noqa: E402
+from repro_torch.kernels.ring_attention import ops as ra  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.kernels.paged_attention.ops import (count_live_blocks,  # noqa: E402
                                                      plan_blocks)
@@ -297,7 +298,7 @@ def test_warm_up_then_captures_from_a_new_key_up_then_replays(fake_cuda):
     assert snap["replays"] + sum(snap["eager"].values()) == len(keys)
     assert body.keys == [31, 31, 32, 33, 34, 30]   # warm-up, then one capture a key
     assert {g.graph.pool for g in graphs.graphs.values()} == {("pool", 1)}
-    assert all(g.launches == (5, 0, 0) for g in graphs.graphs.values())
+    assert all(g.launches == (5, 0, 0, 0) for g in graphs.graphs.values())
     # before each replay the host waits for the one two replays back, then
     # records its own end on the same event
     events = [e for _, e in _FakeEvent.log]
@@ -422,6 +423,22 @@ def test_ring_and_ssm_replay_equals_eager_through_the_wrap(cuda):
     positions = [np.array([prompt + i, prompt + i]) for i in range(40)]   # ring of 16
     snap, keys = _replay_equals_eager(HYBRID, B, 200, positions, cuda, toks)
     assert set(keys) == {None} and snap["captures"] == {"None": 1}
+
+
+def test_reduced_hymba_replays_the_ring_kernel_bit_for_bit(cuda):
+    """The reduced hymba (a ring of 64 slots, D 32, G 2) prefilled with 32
+    tokens, then 48 steps through the ring's wrap: the captured step runs the
+    ring kernel, its replays equal the eager body bit for bit, and every step
+    counts the kernel once a layer in each copy."""
+    cfg = get_reduced("hymba-1.5b")
+    B, prompt = 2, 32
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size,
+                                                              (B, prompt))).to(cuda)
+    positions = [np.array([prompt + i, prompt + i]) for i in range(48)]
+    launches = ra.launches
+    snap, keys = _replay_equals_eager(cfg, B, 200, positions, cuda, toks)
+    assert set(keys) == {None} and snap["captures"] == {"None": 1}
+    assert ra.launches - launches == 2 * cfg.num_layers * len(positions)
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)

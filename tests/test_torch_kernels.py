@@ -24,6 +24,8 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_ref, flash_attention_online)
 from repro_torch.kernels.paged_attention import ops as pa  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
+from repro_torch.kernels.ring_attention import ops as ra  # noqa: E402
+from repro_torch.kernels.ring_attention.ref import ring_attention_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_ref as ssd_oracle  # noqa: E402
@@ -547,6 +549,180 @@ def test_paged_wrapper_rejects_misaligned_pool_on_gpu(cuda):
         pa.paged_attention(q, kv, np.array([[0, 1]], np.int32),
                            torch.tensor([16], dtype=torch.int32, device=cuda),
                            pages_per_block=2)
+
+
+# ---------------------------------------------------------------------------
+# ring decode attention (sliding-window archs)
+# ---------------------------------------------------------------------------
+
+RING_SLOTS = 48
+RING_STEPS = {     # each sequence's position: a ring filling, full, wrapped past its end
+    "filling": [0, 7, RING_SLOTS - 2],
+    "full": [RING_SLOTS - 1] * 3,
+    "wrapped": [RING_SLOTS + 5, 2 * RING_SLOTS + 17, 3 * RING_SLOTS - 2],
+}
+
+
+def ring_step(G, D, cur, dtype=torch.bfloat16, Kh=2, seed=0):
+    """q, a ring of random K/V, and the ring cache's own plan for positions
+    ``cur``: (q, k, v, valid, cur as a tensor)."""
+    from repro_torch.models.attention import SlotCache
+    rng = np.random.default_rng(seed)
+    B = len(cur)
+    cache = SlotCache(1, B, RING_SLOTS, [(Kh, D)] * 2, device=torch.device("cpu"))
+    valid = cache.plan_step(np.array(cur)).valid.clone()
+
+    def draw(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
+    return (draw(B, Kh * G, D), draw(B, RING_SLOTS, Kh, D), draw(B, RING_SLOTS, Kh, D),
+            valid, torch.tensor(cur))
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("G", [1, 5, 8])
+@pytest.mark.parametrize("steps", list(RING_STEPS))
+def test_ring_plain_vs_reference(steps, G, D):
+    """The plain version on the ring cache's plan against the reference's
+    windowed ``attention_decode`` arithmetic on the positions alone."""
+    q, k, v, valid, cur = ring_step(G, D, RING_STEPS[steps])
+    assert int(valid.sum()) == sum(min(c + 1, RING_SLOTS) for c in RING_STEPS[steps])
+    out = ra.ring_attention(q, k, v, valid, D ** -0.5)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ring_attention_ref(q, k, v, cur).float(),
+                               rtol=0, atol=0)
+    # the same function in f32, and the wrapper on the CPU is the plain version
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    torch.testing.assert_close(ra.ring_attention_plain(q32, k32, v32, valid, D ** -0.5),
+                               ring_attention_ref(q32, k32, v32, cur), rtol=1e-6, atol=1e-6)
+
+
+def test_ring_meta_op_counts_every_slot():
+    """On meta tensors: the output's shape and dtype, the kernel's flops
+    (q·K and P·V over every slot) and bytes (q, out, the ring, the mask)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.kernels import BYTES
+    B, H, Kh, D, S = 64, 25, 5, 64, 1024
+    meta = torch.device("meta")
+    q = torch.empty(B, H, D, dtype=torch.bfloat16, device=meta)
+    k = torch.empty(B, S, Kh, D, dtype=torch.bfloat16, device=meta)
+    valid = torch.empty(B, S, dtype=torch.bool, device=meta)
+    with FlopCounterMode(display=False) as fc:
+        out = ra.ring_attention(q, k, k, valid, D ** -0.5)
+    assert out.shape == q.shape and out.dtype == q.dtype and out.device.type == "meta"
+    assert fc.get_total_flops() == 4 * D * H * S * B == 419_430_400
+    nbytes = BYTES[torch.ops.repro_torch.ring_attention](q, k, k, valid, D ** -0.5, result=out)
+    assert nbytes == 2 * B * H * D * 2 + 2 * B * S * Kh * D * 2 + B * S
+    assert 2 * B * S * Kh * D * 2 == 83_886_080          # the ring: 83.9 MB a layer
+    with pytest.raises(NotImplementedError, match="meta tensors only"):
+        torch.ops.repro_torch.ring_attention(torch.zeros(1, 2, 32), torch.zeros(1, 4, 1, 32),
+                                             torch.zeros(1, 4, 1, 32),
+                                             torch.ones(1, 4, dtype=torch.bool), 0.125)
+
+
+def test_ring_split_count():
+    """Splits fill 2 CTAs an SM over (sequence, KV head) pairs, at least 256
+    slots each, and never leave a trailing split without a slot."""
+    assert ra.split_count(64 * 5, 1024, 132) == 1          # hymba-1.5b's decode
+    assert ra.split_count(16 * 5, 1024, 132) == 4
+    assert ra.split_count(4 * 5, 1024, 132) == 4           # capped by 256 slots a split
+    assert ra.split_count(4, 64, 132) == 1                 # too short to split
+    assert ra.split_count(4, 1024, 132) == 4
+    assert ra.split_count(1024, 1024, 132) == 1            # the grid fills the card
+    assert ra.split_count(1000, 100_000, 8) == 4           # 32,768 slots a split at most
+    for ctas, length in ((3, 1000), (7, 513), (2, 300)):
+        S = ra.split_count(ctas, length, 132)
+        per = -(-length // S)
+        assert (S - 1) * per < length
+
+
+def test_ring_takes_the_plain_path_where_the_kernel_has_no_instance():
+    """``kernel_takes`` names the instances (bf16 or f32, q and ring of one
+    dtype, (D, G) in INSTANCES): on the card any other input raises. On the
+    CPU every input, instanced or not, runs the plain version."""
+    bf16 = torch.bfloat16
+    for D, G in ra.INSTANCES:
+        for dtype in (bf16, torch.float32):
+            assert ra.kernel_takes(torch.zeros(2, 2 * G, D, dtype=dtype),
+                                   torch.zeros(2, 8, 2, D, dtype=dtype))
+    assert not ra.kernel_takes(torch.zeros(2, 4, 32),                    # f32 q, bf16 ring
+                               torch.zeros(2, 8, 2, 32, dtype=bf16))
+    assert not ra.kernel_takes(torch.zeros(2, 4, 32, dtype=torch.float16),  # f16
+                               torch.zeros(2, 8, 2, 32, dtype=torch.float16))
+    assert not ra.kernel_takes(torch.zeros(2, 4, 48, dtype=bf16),         # D 48
+                               torch.zeros(2, 8, 2, 48, dtype=bf16))
+    assert not ra.kernel_takes(torch.zeros(2, 18, 32, dtype=bf16),        # G 9
+                               torch.zeros(2, 8, 2, 32, dtype=bf16))
+    assert not ra.kernel_takes(torch.zeros(2, 6, 64, dtype=bf16),         # G 3 at D 64
+                               torch.zeros(2, 8, 2, 64, dtype=bf16))
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 6, 48, generator=gen).to(bf16)
+    k, v = (torch.randn(2, 8, 2, 48, generator=gen).to(bf16) for _ in range(2))
+    valid = torch.ones(2, 8, dtype=torch.bool)
+    torch.testing.assert_close(ra.ring_attention(q, k, v, valid, 48 ** -0.5),
+                               ra.ring_attention_plain(q, k, v, valid, 48 ** -0.5),
+                               rtol=0, atol=0)
+
+
+def test_ring_kernel_vs_plain_at_hymba_decode_on_gpu(cuda):
+    """B 64, H 25, Kh 5, D 64, 1024 slots: a full ring and one filling, to
+    one bf16 ulp of the plain version's output; the kernel serves the call."""
+    import chip_smoke
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for cur in (np.full(64, 2047 + 1024), np.arange(64) * 16):
+        q, k, v, valid = chip_smoke.ring_inputs(cuda, gen, 64, 25, 5, 64, 1024, cur)
+        before = ra.launches
+        out = ra.ring_attention(q, k, v, valid, 64 ** -0.5)
+        torch.cuda.synchronize()
+        assert ra.launches == before + 1
+        assert chip_smoke.bf16_ulps(out, ra.ring_attention_plain(q, k, v, valid, 64 ** -0.5)) <= 1
+
+
+def test_ring_kernel_edge_cases_on_gpu(cuda):
+    """One valid slot, B 1, forced splits holding no valid slot, valid slots
+    across the ring's end, every instance's (D, G), a ring view at layer 1 of
+    2 (chip_smoke.py's cases), in bf16 to one bf16 ulp and in f32 to
+    chip_smoke.RING_F32_TOL; the same bits twice."""
+    import chip_smoke
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    dtypes = set()
+    for case in chip_smoke.ring_edge_cases(cuda, gen):
+        before = ra.launches
+        row = chip_smoke.check_ring_case(case)
+        dtypes.add(row["q"])
+        assert ra.launches == before + 2
+        assert row["ulps"] <= 1 if "ulps" in row else row["max_abs_err"] <= 1e-5
+    assert dtypes == {"torch.bfloat16", "torch.float32"}
+
+
+def test_ring_f32_launches_the_kernel_and_other_inputs_raise_on_gpu(cuda):
+    """An f32 model's ring runs the kernel's f32 instance at hymba's heads and
+    its reduced copy's, within chip_smoke.RING_F32_TOL of the plain version;
+    mixed dtypes, f16, and a (D, G) with no instance raise and launch
+    nothing."""
+    import chip_smoke
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for B, H, Kh, D, cur in ((64, 25, 5, 64, np.full(64, 2047)), (3, 4, 2, 32, [5, 70, 200])):
+        q, k, v, valid = chip_smoke.ring_inputs(cuda, gen, B, H, Kh, D, 64 if D == 32 else 1024,
+                                                cur, dtype=torch.float32)
+        before = ra.launches
+        out = ra.ring_attention(q, k, v, valid, D ** -0.5)
+        torch.cuda.synchronize()
+        assert ra.launches == before + 1 and out.dtype == torch.float32
+        torch.testing.assert_close(out, ra.ring_attention_plain(q, k, v, valid, D ** -0.5),
+                                   rtol=chip_smoke.RING_F32_TOL, atol=chip_smoke.RING_F32_TOL)
+    valid = torch.ones(2, 16, dtype=torch.bool, device=cuda)
+    bad = ((torch.float32, torch.bfloat16, 32, 4, TypeError),
+           (torch.bfloat16, torch.float32, 32, 4, TypeError),
+           (torch.float16, torch.float16, 32, 4, TypeError),
+           (torch.bfloat16, torch.bfloat16, 48, 4, ValueError),
+           (torch.bfloat16, torch.bfloat16, 64, 6, ValueError))
+    for q_dtype, ring_dtype, D, H, err in bad:
+        q = torch.randn(2, H, D, device=cuda).to(q_dtype)
+        k = torch.randn(2, 16, 2, D, device=cuda).to(ring_dtype)
+        before = ra.launches
+        with pytest.raises(err, match="ring_attention"):
+            ra.ring_attention(q, k, k, valid, D ** -0.5)
+        assert ra.launches == before
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ torch.set_num_threads(1)   # small shapes; leave the cores to parallel test work
 
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa  # noqa: E402
+from repro_torch.kernels.ring_attention import ops as ra  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_reduced  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -159,7 +160,7 @@ def test_serve_every_arch_on_cpu(arch, capsys):
     (none for a frontend's embeddings), the page-run line only over a paged
     cache, and no kernel launch on the CPU."""
     cfg = get_reduced(arch)
-    fa.launches = pa.launches = ssd.launches = 0
+    fa.launches = pa.launches = ssd.launches = ra.launches = 0
     res = serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",
                       "--prompt-len", "16", "--gen", "4", "--page-tokens", "4"])
     out = capsys.readouterr().out.splitlines()
@@ -179,23 +180,23 @@ def test_serve_every_arch_on_cpu(arch, capsys):
         np.testing.assert_array_equal(res.generated, greedy)
     assert res.decode_logits.shape == (2, 4, cfg.padded_vocab)
     assert torch.isfinite(res.decode_logits.float()).all()
-    assert (fa.launches, pa.launches, ssd.launches) == (0, 0, 0)
+    assert (fa.launches, pa.launches, ssd.launches, ra.launches) == (0, 0, 0, 0)
 
 
 # reduced archs the kernels take (deepseek's reduced head dim 48 is CPU-only):
-# arch → (flash, paged, ssd_scan) launches for 2 layers, 4 decode steps
-GPU_ARCHS = {"rdmabox-paper-100m": (2, 8, 0), "musicgen-large": (2, 8, 0),
-             "qwen2-moe-a2.7b": (2, 8, 0), "hymba-1.5b": (2, 0, 2)}
+# arch → (flash, paged, ssd_scan, ring) launches for 2 layers, 4 decode steps
+GPU_ARCHS = {"rdmabox-paper-100m": (2, 8, 0, 0), "musicgen-large": (2, 8, 0, 0),
+             "qwen2-moe-a2.7b": (2, 8, 0, 0), "hymba-1.5b": (2, 0, 2, 8)}
 
 
 @pytest.mark.parametrize("arch", sorted(GPU_ARCHS))
 def test_serve_arch_on_gpu_goes_through_its_kernels(arch):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    fa.launches = pa.launches = ssd.launches = 0
+    fa.launches = pa.launches = ssd.launches = ra.launches = 0
     res = serve.main(["--arch", arch, "--reduced", "--batch", "2", "--prompt-len", "64",
                       "--gen", "4"])
-    assert (fa.launches, pa.launches, ssd.launches) == GPU_ARCHS[arch]
+    assert (fa.launches, pa.launches, ssd.launches, ra.launches) == GPU_ARCHS[arch]
     assert torch.isfinite(res.decode_logits.float()).all()
 
 

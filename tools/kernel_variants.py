@@ -11,7 +11,7 @@ variant, then the card's name and power limit::
 
     python tools/kernel_variants.py            # build and time every variant
     python tools/kernel_variants.py paged      # only one kernel's (ssd_scan, flash,
-                                               # flash_bwd, paged)
+                                               # flash_bwd, paged, ring)
     python tools/kernel_variants.py --check    # only apply the edits (no GPU)
 """
 
@@ -106,6 +106,19 @@ PAGED = {
     "batch_2": [("constexpr int kBatch = 4;", "constexpr int kBatch = 2;")],
 }
 
+# (old, new) edits of csrc/ring_attention.cu; timed at hymba-1.5b.decode's ring
+# (B 64, 1024 slots, H 25, Kh 5, D 64) at several split counts
+RING_STAGES = "constexpr int kStages = 3;"
+RING = {
+    "shipped": [],
+    "no_compute": [("    for (int t = 0; t < kTilesPerWarp; ++t) {",
+                    "    for (int t = 0; t < 0; ++t) {")],
+    "no_pv": [("      for (int i = 0; i < 16 / RW; ++i) {", "      for (int i = 0; i < 0; ++i) {")],
+    "stages_2": [(RING_STAGES, "constexpr int kStages = 2;")],
+    "stages_4": [(RING_STAGES, "constexpr int kStages = 4;")],
+    "l2_256": [('"cp.async.cg.shared.global [%0]', '"cp.async.cg.shared.global.L2::256B [%0]')],
+}
+
 
 def write_variants(kind: str, variants: dict) -> dict:
     """Apply each variant's edits to csrc/<kind>.cu; returns name → source path."""
@@ -140,10 +153,11 @@ def build(paths: dict) -> dict:
 
 
 def main() -> None:
-    kinds = {"ssd_scan": SSD, "flash": FLASH, "flash_bwd": FLASH_BWD, "paged": PAGED}
+    kinds = {"ssd_scan": SSD, "flash": FLASH, "flash_bwd": FLASH_BWD, "paged": PAGED,
+             "ring": RING}
     only = [a for a in sys.argv[1:] if a in kinds] or list(kinds)
     files = {"flash": "flash_attention", "flash_bwd": "flash_attention_bwd",
-             "paged": "paged_attention"}
+             "paged": "paged_attention", "ring": "ring_attention"}
     sources = {k: write_variants(files.get(k, k), kinds[k]) for k in only}
     if "--check" in sys.argv:
         print(json.dumps({"variants": sorted(f"{k}/{v}" for k in sources for v in sources[k])}))
@@ -168,6 +182,8 @@ def main() -> None:
         time_flash_bwd(cs, libs["flash_bwd"], dev, gen, stream)
     if "paged" in libs:
         time_paged(cs, libs["paged"], dev, gen, stream)
+    if "ring" in libs:
+        time_ring(cs, libs["ring"], dev, gen, stream)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip())
@@ -269,6 +285,36 @@ def time_paged(cs, paged_libs, dev, gen, stream) -> None:
                 print(json.dumps({"kernel": "paged_attention", "variant": name, "R": R,
                                   "heads_per_cta": heads, "splits": S, "box_tokens": box,
                                   "ms": cs.device_ms(call), "ptxas": used[:1]}), flush=True)
+
+
+def time_ring(cs, ring_libs, dev, gen, stream) -> None:
+    """Every variant at hymba-1.5b.decode's ring (B 64) at 1, 2 and 4 splits;
+    the shipped source also at B 1, 4 and 16 over the same 1024 slots at 1 to
+    16 splits, where the wrapper's split count is decided."""
+    from repro_torch.kernels.ring_attention import ops as ra
+    import numpy as np
+    import torch
+    H, Kh, D, length = 25, 5, 64, 1024
+    sizes = {B: cs.ring_inputs(dev, gen, B, H, Kh, D, length, np.full(B, 2047))
+             for B in (64, 16, 4, 1)}
+    partial = torch.empty(64 * Kh * 16 * (H // Kh) * (D + 2), device=dev)
+    for name, (so, _) in ring_libs.items():
+        fn = ctypes.CDLL(str(so)).ring_attention_fwd
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float,
+                                                                     ctypes.c_void_p]
+        for B, (q, k, v, valid) in sizes.items():
+            if B != 64 and name != "shipped":
+                continue
+            out = torch.empty_like(q)
+            for S in (1, 2, 4) if B == 64 else (1, 2, 4, 8, 16):
+                def call():
+                    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+                                    out.data_ptr(), partial.data_ptr(), B, H, Kh, D, length, S,
+                                    0, D ** -0.5, stream()), name)
+                print(json.dumps({"kernel": "ring_attention", "variant": name, "B": B,
+                                  "splits": S, "wrapper_splits": ra.split_count(
+                                      B * Kh, length, ra.sm_count(dev)),
+                                  "ms": cs.device_ms(call)}), flush=True)
 
 
 if __name__ == "__main__":
