@@ -46,25 +46,23 @@ Phases, each printing one JSON line:
    prompt 64, 32 decode steps) with every kernel's launch count reset just
    before and read just after; the decode logits against one forward pass over
    prompt + generated tokens;
-7. profile: device time by kernel over 8 decode steps (torch.profiler);
-8. serve_ssm: the same for mamba2-780m at full width (batch 4, prompt 512 = two
+7. serve_ssm: the same for mamba2-780m at full width (batch 4, prompt 512 = two
    scan chunks of 256, 256 decode steps), through the SSD chunk-scan kernel;
-9. profile_ssm: device time by kernel for one mamba2 prefill and 8 decode steps;
-10. ssm_f32: the decode-vs-forward bound for mamba2 on an f32 copy of the served
+8. ssm_f32: the decode-vs-forward bound for mamba2 on an f32 copy of the served
    weights, over the served tokens (in bf16 the random full-width model
    amplifies rounding past the bound, the JAX reference as much as the port);
-11. serve_spill: qwen1.5-0.5b at full width again, with ``--spill --donors 3
+9. serve_spill: qwen1.5-0.5b at full width again, with ``--spill --donors 3
    --replication 2 --clients 2``: the ``kv_store`` on the card, donor memory
    pinned on the host; sequence 0's gather byte-exact after its spill and fetch,
    the same kernel launches as ``serve``, no failed transfer, struck donor or
    disk access;
-12. kv_spill: a long-context pool through the RDMAbox engine: qwen1.5-0.5b's
+10. kv_spill: a long-context pool through the RDMAbox engine: qwen1.5-0.5b's
    per-layer K/V (2·16·64 bf16 features, 4 KB a token) for 4 sequences of 8192
    tokens in pages of 16 (2048 + 3 pages, 128 MiB on the card) held as a
    ``kv_store``; paged attention over it, every sequence spilled to 3 donors
    and fetched back, paged attention again; spill and fetch rates beside one
    plain ``copy_`` of the same bytes to pinned memory and back;
-13. serve_archs: ``serve.main`` at full width and depth for every other arch
+11. serve_archs: ``serve.main`` at full width and depth for every other arch
    of the registry (rdmabox-paper-100m, musicgen-large with embedding inputs,
    qwen2-moe-a2.7b, hymba-1.5b with a prompt of 1280 past its 1024-token
    window, deepseek-v2-lite-16b through flash at D 192, and command-r-35b,
@@ -72,34 +70,34 @@ Phases, each printing one JSON line:
    GB of bf16 weights beside init_weights' one f32 draw, ``serve_bytes``),
    B 4, prompt 64, 32 steps, each kernel's launches reset just before and
    held to the arch's count just after; peak memory beside the reckoning;
-14. dense_decode: the four 32-35 B archs at full width, depth cut to 2
+12. dense_decode: the four 32-35 B archs at full width, depth cut to 2
    layers, prefill of 64 and 32 decode steps against one forward (paged
    attention at GQA groups 8, 1, 5 and 7, D 128), held in f32 as hymba is;
-15. hybrid_decode: hymba at full width, prefill of 1280, 256 decode steps across
+13. hybrid_decode: hymba at full width, prefill of 1280, 256 decode steps across
    the ring's wrap, against one forward; held in f32, beside it bf16 through
    the kernels and bf16 with flash and the scan swapped for their plain
    versions, and each bf16 forward against the f32 one;
-16. mla_decode: deepseek at full width with every expert routed, prefill of 32
+14. mla_decode: deepseek at full width with every expert routed, prefill of 32
    tokens and 32 absorbed decode steps against one forward; held and witnessed
    as hymba is;
-17. train: ``repro_torch.launch.train.main`` at full width (rdmabox-paper-100m,
+15. train: ``repro_torch.launch.train.main`` at full width (rdmabox-paper-100m,
    batch 8, sequence 512, 30 steps, --offload of the first moment through the
    engine), launches reset just before and held to 12 flash forwards and 12
    flash backwards a step just after, the loss finite at every step and the
    mean of the last 5 below the first 5's by 0.1; step seconds, train tok/s,
    peak device memory; then 2 steps with --remat full (24 forwards a step);
-18. train_ssm: ``launch.train.main`` at full width and depth on mamba2-780m
+16. train_ssm: ``launch.train.main`` at full width and depth on mamba2-780m
    (batch 8, sequence 512 = two scan chunks, 30 steps), launches held to 48
    scan forwards and 48 scan backwards a step and nothing else, the loss
    finite and falling by 0.1 as in ``train``; step seconds, train tok/s, peak
-   device memory and a profile with the scan backward's device ms a step;
-19. train_archs: 30 steps of ``launch.steps.build_train_step`` at S 512, real
+   device memory;
+17. train_archs: 30 steps of ``launch.steps.build_train_step`` at S 512, real
    top-k routing, no checkpoint: qwen2-moe-a2.7b and deepseek-v2-lite-16b at
    4 layers, musicgen-large at full depth on codebook embeddings
    (``frontend_embeds``), B 4; the loss finite at every step and falling by
    0.1, one flash forward and backward an attention layer a step; step
    seconds, train tok/s, peak memory;
-20. train_grads: one step at full width, S 512, of every arch: rdmabox-paper-100m
+18. train_grads: one step at full width, S 512, of every arch: rdmabox-paper-100m
    (B 8), qwen1.5-0.5b, mamba2-780m, hymba-1.5b, musicgen-large (embedding
    inputs, its untied embed unreached) at full depth, and qwen2-moe-a2.7b,
    deepseek-v2-lite-16b (B 4), llava-next-34b (embedding inputs),
@@ -110,12 +108,12 @@ Phases, each printing one JSON line:
    token to every expert there, command-r-35b's kernel gradients wait in host
    memory), printed in bf16 (held finite; real top-k), each arch's launches
    held;
-21. moe_repeat: qwen2-moe-a2.7b at full width, depth cut to 2 of 24 layers,
+19. moe_repeat: qwen2-moe-a2.7b at full width, depth cut to 2 of 24 layers,
    B 4, S 512: two forwards and backwards of the loss, the loss and every
    gradient equal in every bit (the MoE combine sums in a fixed order);
-22. train_resume: rdmabox-paper-100m's width at 2 layers, 6 straight steps
+20. train_resume: rdmabox-paper-100m's width at 2 layers, 6 straight steps
    against 3 + a checkpoint restore + 3, every parameter and moment equal;
-23. kernels: each kernel's time at the serving shapes (CUDA-graph replay, so no
+21. kernels: each kernel's time at the serving shapes (CUDA-graph replay, so no
    host gaps), its plain version's, the bound of the card, and a library call's;
    flash attention also at a causal prompt of 4096 tokens (D 64 and D 192), at
    deepseek's and hymba's prefill and at the training shape (with the LSE), the
@@ -131,8 +129,8 @@ Phases, each printing one JSON line:
    at mamba2-780m's training shape (B 8, S 512), the backward also at
    hymba-1.5b's N 16 (B 4); the scan's training rows give the bound at 3×TF32
    and at the FP64 tensor cores they run; the scan's three kernels also at
-   chunks 64 and 128 (phase 25);
-24. steps: ``launch.steps``' step builders on a real 1×1 ``DeviceMesh``
+   chunks 64 and 128 (phase 23);
+22. steps: ``launch.steps``' step builders on a real 1×1 ``DeviceMesh``
    (``make_local_mesh``, nccl) at full width, random weights from seed 0,
    the reference's dry-run shapes cut to one card (``STEP_RUNS``):
    qwen1.5-0.5b ``prefill_32k`` (flash) and ``decode_32k`` over a 32768-token
@@ -153,7 +151,7 @@ Phases, each printing one JSON line:
    packages; hymba's ring kernel is held in ``hybrid_decode``): their logits
    are held finite and of the vocabulary's width, and ``hybrid_decode`` and
    ``serve_ssm`` hold the same decode code against a forward;
-25. optimized: the reference's perf knobs (``repro_torch.configs.optimized``)
+23. optimized: the reference's perf knobs (``repro_torch.configs.optimized``)
    on the card. qwen2-moe-a2.7b and deepseek-v2-lite-16b at full width and
    ``train_arch_cfg``'s 4 layers under ``moe`` and ``mla_lat`` alone and
    under the port's ``optimize(cfg)`` (a variant whose config equals an
@@ -173,7 +171,7 @@ Phases, each printing one JSON line:
    the step builders, 48 scan forwards (and 48 backwards in training) held;
    the serving scan at the serving shape against ``ssd_chunked`` (1e-3), the
    training forward and the backward at ``train_ssm``'s shape against their
-   plain versions (1e-4), each a row of the kernels line (phase 23) with its
+   plain versions (1e-4), each a row of the kernels line (phase 21) with its
    time, bound and launches.
 
 Each phase's seconds are printed as it ends and gathered in a ``phase_seconds``
@@ -1299,72 +1297,6 @@ def phase_ssm_f32(model, prompts, fed) -> None:
               {0, SSM_GEN // 16 - 1, SSM_GEN // 4 - 1, SSM_GEN // 2 - 1, SSM_GEN - 1})}})
 
 
-def kernel_rows(prof) -> list:
-    from torch.autograd import DeviceType
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:     # kernels only: no double count
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        rows.append({"name": ev.key[:80], "count": ev.count,
-                     "device_us": ev.self_cuda_time_total if us is None else us})
-    rows.sort(key=lambda r: -r["device_us"])
-    return rows
-
-
-def profiled(fn) -> tuple[list, float]:
-    """Kernel rows and host wall seconds of ``fn()``, which ends in a sync."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    return kernel_rows(prof), wall
-
-
-def decode_steps(model, cache, tok, start: int, steps: int) -> None:
-    for i in range(steps):
-        logits = model.decode_step(cache, tok, np.full(BATCH, start + i))
-        tok = logits[:, : model.cfg.vocab_size].argmax(-1)
-
-
-def profile_summary(rows: list, wall: float, steps: int) -> dict:
-    busy_us = sum(r["device_us"] for r in rows)
-    return {"wall_ms": wall * 1e3, "kernels_per_step": sum(r["count"] for r in rows) / steps,
-            "device_busy_ms": busy_us / 1e3,
-            "device_idle_share": 1 - busy_us / 1e3 / (wall * 1e3) if wall else None,
-            "top": rows[:12]}
-
-
-@torch.no_grad()
-def phase_profile(model, prompts) -> None:
-    steps = 8
-    cache = model.init_cache(BATCH, PROMPT + steps, page_tokens=PAGE_TOKENS)
-    tok = model.prefill(prompts, cache)[:, : model.cfg.vocab_size].argmax(-1)
-    torch.cuda.synchronize()
-    rows, wall = profiled(lambda: decode_steps(model, cache, tok, PROMPT, steps))
-    emit({"phase": "profile", "decode_steps": steps, **profile_summary(rows, wall, steps)})
-
-
-@torch.no_grad()
-def phase_profile_ssm(model, prompts) -> None:
-    steps = 8
-    cache = model.init_cache(BATCH, SSM_PROMPT + steps)
-    out = {}
-    rows, wall = profiled(lambda: out.setdefault("logits", model.prefill(prompts, cache)))
-    # the ssd_scan source launches two kernels: C·Bᵀ, then the scan
-    scan_us = sum(r["device_us"] for r in rows
-                  if "ssd_scan_kernel" in r["name"] or "ssd_cb_kernel" in r["name"])
-    prefill = profile_summary(rows, wall, 1)
-    prefill["ssd_scan_device_ms"] = scan_us / 1e3
-    prefill["ssd_scan_share_of_device_time"] = scan_us / 1e3 / prefill["device_busy_ms"]
-    tok = out["logits"][:, : model.cfg.vocab_size].argmax(-1)
-    rows, wall = profiled(lambda: decode_steps(model, cache, tok, SSM_PROMPT, steps))
-    emit({"phase": "profile_ssm", "prefill": prefill, "decode_steps": steps,
-          "decode": profile_summary(rows, wall, steps)})
-
-
 def flash_row(dev, gen, B: int, S: int, H: int, Kh: int, D: int, launches: int,
               err: float, case: str, window=None, lse: bool = False) -> dict:
     """The flash kernel's row of the kernels line: causal bf16 prefill of S
@@ -2151,7 +2083,6 @@ def phase_train() -> dict:
           f"{tokens_a_step / step_s:,.0f} tok/s, peak {peak_gb:.2f} GB, loss "
           f"{losses[0]:.4f} -> {losses[-1]:.4f}; checkpoint, offload and flush after "
           f"the last step {wall - res.seconds:.3f} s")
-    profile = profile_train(res.model, res.opt_state, TRAIN_STEPS, FLASH_TRAIN_KERNELS)
     emit({"phase": "train", "arch": TRAIN_ARCH, "layers": cfg.num_layers,
           "d_model": cfg.d_model, "params": sum(p.numel() for p in res.model.parameters()),
           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
@@ -2159,7 +2090,7 @@ def phase_train() -> dict:
           "train_tok_s": tokens_a_step / step_s, "seconds": res.seconds,
           "after_steps_s": wall - res.seconds, "losses": losses.tolist(),
           "mean_first5": first, "mean_last5": last, "launches": launches,
-          "offload": res.offload, "peak_mem_gb": peak_gb, "profile": profile})
+          "offload": res.offload, "peak_mem_gb": peak_gb})
     del res
     torch.cuda.empty_cache()
     reset_launches()
@@ -2186,8 +2117,7 @@ def phase_train_ssm() -> dict:
     reset just before and held per step just after (48 scan forwards and 48
     scan backwards, nothing else); the loss finite at every step and falling
     by the reference test's rule; step seconds, train tok/s, peak device
-    memory, and a profile of 2 more steps with the scan backward's device ms
-    a step. One checkpoint, after the last step. Returns its launches."""
+    memory. One checkpoint, after the last step. Returns its launches."""
     from repro_torch.launch import train
     cfg = get_config(SSM_ARCH)
     ckpt = ROOT / "build" / "chip_smoke_train_ssm"
@@ -2218,8 +2148,6 @@ def phase_train_ssm() -> dict:
           f"{losses[0]:.4f} -> {losses[-1]:.4f}; checkpoint after the last step "
           f"{wall - res.seconds:.3f} s")
     shutil.rmtree(ckpt, ignore_errors=True)
-    profile = profile_train(res.model, res.opt_state, SSM_TRAIN_STEPS, SSD_TRAIN_KERNELS,
-                            "train_ssm")
     emit({"phase": "train_ssm", "arch": SSM_ARCH, "layers": cfg.num_layers,
           "d_model": cfg.d_model, "ssm_heads": cfg.ssm_heads,
           "ssm_head_dim": cfg.ssm_head_dim, "ssm_state": cfg.ssm_state,
@@ -2230,50 +2158,10 @@ def phase_train_ssm() -> dict:
           "train_tok_s": tokens_a_step / step_s, "seconds": res.seconds,
           "after_steps_s": wall - res.seconds, "losses": losses.tolist(),
           "mean_first5": first, "mean_last5": last, "launches": launches,
-          "peak_mem_gb": peak_gb, "profile": profile})
+          "peak_mem_gb": peak_gb})
     del res
     torch.cuda.empty_cache()
     return launches
-
-
-# train profiles: device ms a step of kernels, by substrings of their names
-FLASH_TRAIN_KERNELS = {"flash_bwd_device_ms": ("flash_bwd",),
-                       "flash_fwd_device_ms": ("flash_attention_bf16",)}
-# (the scan's training forward starts with its f32 C·Bᵀ kernel, the backward
-# with its tensor-core one; the third bucket sums both)
-SSD_TRAIN_KERNELS = {"ssd_bwd_device_ms": ("ssd_bwd_",),
-                     "ssd_fwd_device_ms": ("::fwd_state_kernel(", "::fwd_y_kernel("),
-                     "ssd_cb_device_ms": ("::g_kernel(", "::g_f32_kernel(")}
-
-
-def profile_train(model, opt_state, done: int, kernels: dict, what: str = "train") -> dict:
-    """Device time by kernel over 2 train steps after one warm step, from the
-    trained model and state after ``done`` steps (torch.profiler), and the
-    named kernels' device ms a step."""
-    from repro_torch.configs import RunConfig
-    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
-    from repro_torch.launch.steps import build_train_step
-    step_fn = build_train_step(model.cfg, RunConfig(total_steps=done + 3, warmup_steps=10))
-    data = SyntheticTokens(DataConfig(model.cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH))
-    state = {"opt": opt_state}
-
-    def steps(start: int, n: int) -> None:
-        for i in range(n):
-            state["opt"], _ = step_fn(model, state["opt"], data.batch_at(start + i))
-
-    steps(done, 1)
-    torch.cuda.synchronize()
-    rows, wall = profiled(lambda: steps(done + 1, 2))
-    out = profile_summary(rows, wall, 2)
-    for name, keys in kernels.items():
-        out[name] = sum(r["device_us"] for r in rows
-                        if any(k in r["name"] for k in keys)) / 1e3 / 2
-    out["device_ms_a_step"] = out["device_busy_ms"] / 2
-    named = ", ".join(f"{n} {out[n]:.3f}" for n in kernels)
-    print(f"{what} profile: {out['wall_ms'] / 2:.3f} ms a step, device busy "
-          f"{out['device_ms_a_step']:.3f} ms ({named}), idle share "
-          f"{out['device_idle_share']:.3f}, {out['kernels_per_step']:.0f} kernels a step")
-    return out
 
 
 def frontend_embeds(cfg, tokens: torch.Tensor, seed: int = 0) -> torch.Tensor:
@@ -2814,7 +2702,7 @@ def phase_steps(smi: str) -> dict:
     """``STEP_RUNS`` through ``launch.steps`` on a 1×1 mesh: seconds, bound,
     share, launches, peak memory, the kernel at the step's own inputs against
     its plain version, the step against the plain versions on an f32 copy
-    (module docstring, phase 24)."""
+    (module docstring, phase 22)."""
     import dataclasses
 
     from repro_torch.configs import SHAPES, RunConfig
@@ -3047,7 +2935,7 @@ def opt_hold(runs: dict, mesh, run, tokens, t_tok, t_tgt) -> dict:
 
 def phase_optimized(smi: str) -> dict:
     """The reference's perf knobs (``repro_torch.configs.optimized``) on the card
-    (module docstring, phase 25). Returns {"launches": {run: launches},
+    (module docstring, phase 23). Returns {"launches": {run: launches},
     "rows": the scan's rows at the knobs' chunks for the kernels line}."""
     from repro_torch.configs import RunConfig
     from repro_torch.configs.optimized import DEFAULT_ON
@@ -3220,12 +3108,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     main_err = timed("kernels_vs_plain", phase_compare, dev)
     served = timed("serve", phase_serve, dev)
-    timed("profile", phase_profile, served["model"], served["prompts"])
     launches = served["launches"]
     del served                                    # free qwen's weights and pool
     torch.cuda.empty_cache()
     served = timed("serve_ssm", phase_serve_ssm)
-    timed("profile_ssm", phase_profile_ssm, served["model"], served["prompts"])
     timed("ssm_f32", phase_ssm_f32, served["model"], served["prompts"], served["fed"])
     launches["ssd_scan"] = served["launches"]["ssd_scan"]
     del served

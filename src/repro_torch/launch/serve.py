@@ -4,10 +4,10 @@ The port of ``repro/launch/serve.py``, for every arch of the registry.
 Prefill runs every attention layer through the flash-attention kernel and
 every SSM layer through the SSD chunk-scan kernel, and writes each layer's
 decode state into the model's cache (``Transformer.init_cache``): K/V into
-device pages for a dense, MoE or frontend GQA arch, whose decode steps plan
-the page-run blocks once on the host and run every layer through the
-paged-attention kernel; the last ``window`` tokens' K/V into a ring
-(hymba, decoded with plain products, as the reference does); MLA's latent
+device pages for a dense, MoE or frontend GQA arch, whose cache plans its
+page-run blocks once, when it is made, and whose decode steps run every
+layer through the paged-attention kernel; the last ``window`` tokens' K/V
+into a ring (hymba, decoded through the ring-attention kernel); MLA's latent
 (deepseek, absorbed decode); the (conv, h) state for the SSM (mamba2, and
 hymba's SSM half: an O(1) recurrent update). Archs with a stubbed modality
 frontend (musicgen, llava) take embedding prompts and decode inputs drawn

@@ -26,10 +26,10 @@ A decode cache offers ``prompt_plan``/``write_prompt`` (prefill stores
 the prompt's entries), ``plan_step`` (one step's indices on the device,
 shared by every layer) and, for K/V caches, ``attend`` (store this step's
 k/v, attend over the cache); ``SlotCache`` is the dense kind, also used for
-MLA's latent cache. ``plan_step`` plans on the host and writes the packed
-plan into one device buffer that the cache keeps (``PlanBuffer``), with one
-copy: every step's plan lies at the same addresses, so a decode step can be
-captured once as a CUDA graph and replayed (``models/decode_graph.py``).
+MLA's latent cache. ``plan_step`` copies up only the step's positions and slots,
+into a device buffer the cache keeps (``PlanBuffer``; a pool plans its blocks once,
+a slot cache derives its mask on the device): the same addresses every step, so a
+decode step can be captured once as a CUDA graph and replayed (``models/decode_graph.py``).
 """
 
 from __future__ import annotations
@@ -148,8 +148,8 @@ def _local_rows(cur_index: np.ndarray, shards: Optional[Shards], device
 
 
 class PlanBuffer:
-    """The device buffer of a cache's step plan, written by one copy a step
-    (``put``): every step's plan lies at the same addresses.
+    """The device buffer of a step's positions (or lengths) and slots, written
+    by one copy a step (``put``): at the same addresses every step.
 
     On the card the copy comes from ``STAGES`` pinned host buffers in turn
     and does not wait for the device, so the host plans and launches the next
@@ -216,12 +216,16 @@ class PagedKVPool:
         self.allocator = PageAllocator(batch * per_seq)
         self.page_table = np.array([self.allocator.alloc(per_seq)
                                     for _ in range(batch)], np.int32)
+        self.page_table.flags.writeable = False     # fixed: its blocks are planned once
         self.pool = torch.zeros(
             (cfg.num_layers, self.allocator.num_pages + R - 1, T, 2,
              kv_heads, cfg.head_dim), dtype=dtype, device=device)
-        B, NB = self.page_table.shape     # plan_blocks: NB = Pmax descriptors at worst
-        self._plan = PlanBuffer(2 * B * NB + 2 * B, torch.int32, device)
-        self._last_plan: Optional[Tuple[np.ndarray, np.ndarray]] = None   # (valid, lengths)
+        starts, self._host_valid = plan_blocks(self.page_table, R)   # (B, NB) each
+        self.block_start, self.block_valid = torch.from_numpy(
+            np.stack([starts, self._host_valid])).to(device)
+        self.most_blocks = int((self._host_valid > 0).sum(1).max(initial=0))
+        self._plan = PlanBuffer(2 * batch, torch.int32, device)   # lengths, slots
+        self._last_lengths: Optional[np.ndarray] = None
 
     @property
     def capacity(self) -> int:
@@ -234,12 +238,12 @@ class PagedKVPool:
         descriptors that hold them."""
         out = {"reserved_bytes": self.pool.nbytes, "live_tokens": 0, "live_bytes": 0,
                "live_blocks": 0}
-        if self._last_plan is not None:
-            valid, lengths = self._last_plan
-            tokens = int(lengths.sum())
+        if self._last_lengths is not None:
+            tokens = int(self._last_lengths.sum())
             token_bytes = self.pool.shape[0] * self.pool[0, 0, 0].nbytes     # L · (2, Kh, D)
+            live = live_descriptors(self._host_valid, self._last_lengths, self.page_tokens)
             out.update(live_tokens=tokens, live_bytes=tokens * token_bytes,
-                       live_blocks=int(live_descriptors(valid, lengths, self.page_tokens).sum()))
+                       live_blocks=int(live.sum()))
         return out
 
     def token_slots(self, positions: np.ndarray) -> np.ndarray:
@@ -267,8 +271,9 @@ class PagedKVPool:
     write_prompt = write                 # with ``prompt_plan``'s slots
 
     def plan_step(self, cur_index: np.ndarray) -> DecodePlan:
-        """Plan the blocks and this step's write slot on the host; one copy up,
-        into the pool's plan buffer (the same tensors every step).
+        """This step's lengths and write slots, one copy up into the pool's
+        plan buffer, beside the blocks planned when the pool was made (the
+        same tensors every step).
 
         ``cur_index`` (B,) is each sequence's position of the token being
         decoded, i.e. its cached tokens so far. Each sequence holds all its
@@ -276,17 +281,14 @@ class PagedKVPool:
         no live token: ``live_blocks`` counts only those that do.
         """
         cur, positions = _local_rows(cur_index, self.shards, self.pool.device)
-        starts, valid = plan_blocks(self.page_table, self.pages_per_block)
-        packed = np.concatenate([starts.ravel(), valid.ravel(), cur + 1,
-                                 self.token_slots(cur[:, None])[:, 0]])
-        dev = self._plan.put(packed.astype(np.int32))
-        self._last_plan = (valid, cur + 1)
-        B, NB = starts.shape
-        n = B * NB
-        return DecodePlan(dev[:n].view(B, NB), dev[n:2 * n].view(B, NB),
-                          dev[2 * n:2 * n + B], dev[2 * n + B:],
-                          count_live_blocks(valid, cur + 1, self.page_tokens), positions,
-                          most_blocks=int((valid > 0).sum(1).max(initial=0)))
+        lengths = cur + 1
+        dev = self._plan.put(np.concatenate(
+            [lengths, self.token_slots(cur[:, None])[:, 0]]).astype(np.int32))
+        self._last_lengths = lengths
+        B = len(cur)
+        return DecodePlan(self.block_start, self.block_valid, dev[:B], dev[B:],
+                          count_live_blocks(self._host_valid, lengths, self.page_tokens),
+                          positions, most_blocks=self.most_blocks)
 
     def attend(self, layer: int, plan: DecodePlan, q: torch.Tensor, k: torch.Tensor,
                v: torch.Tensor) -> torch.Tensor:
@@ -347,8 +349,9 @@ class SlotCache:
             batch = shards.local_batch
         self.bufs = [torch.zeros((num_layers, batch, length, *shape), dtype=dtype,
                                  device=device) for shape in shapes]
-        # the step plan's bytes: positions and slots (B,) int64, then valid (B, length)
-        self._plan = PlanBuffer(16 * batch + batch * length, torch.uint8, device)
+        self._plan = PlanBuffer(2 * batch, torch.int64, device)   # positions, slots
+        self._slots = torch.arange(length, device=device)
+        self._valid = torch.empty((batch, length), dtype=torch.bool, device=device)
 
     @property
     def device(self) -> torch.device:
@@ -375,22 +378,18 @@ class SlotCache:
             buf[layer][:, slots] = val[:, pos].to(buf.dtype)
 
     def plan_step(self, cur_index: np.ndarray) -> SlotPlan:
-        """Slot and mask of the step at host positions ``cur_index`` (B,),
-        copied up at once into the cache's plan buffer (the same tensors
-        every step)."""
+        """The step at host positions ``cur_index`` (B,): positions and slots copied
+        up at once, the mask ``age ≤ cur`` (ages are below ``length``) on the device."""
         cur, positions = _local_rows(cur_index, self.shards, self.device)
         self._check(int(cur.max()))
-        slot = cur % self.length
-        age = (slot[:, None] - np.arange(self.length)[None, :]) % self.length
-        valid = age < np.minimum(cur + 1, self.length)[:, None]
         B = len(cur)
-        buf = self._plan.put(np.concatenate(
-            [np.ascontiguousarray(cur).view(np.uint8), slot.view(np.uint8),
-             valid.view(np.uint8).ravel()]))
+        buf = self._plan.put(np.concatenate([cur, cur % self.length]))
+        slot = buf[B:]
+        age = (slot[:, None] - self._slots).remainder_(self.length)
+        torch.le(age, buf[:B, None], out=self._valid)
         if positions is None:
-            positions = buf[:8 * B].view(torch.int64).view(B, 1)
-        return SlotPlan(positions, buf[8 * B:16 * B].view(torch.int64),
-                        buf[16 * B:].view(torch.bool).view(B, self.length))
+            positions = buf[:B].view(B, 1)
+        return SlotPlan(positions, slot, self._valid)
 
     def write_step(self, layer: int, plan: SlotPlan, *values: torch.Tensor) -> None:
         """Each value (B, *shape) at its sequence's step slot, in place."""

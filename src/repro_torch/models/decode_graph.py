@@ -9,8 +9,8 @@ one launch. The graph wraps the eager body itself (``Transformer``'s
 same order, on the same dtypes.
 
 What a replay reads from the host is put in place before it: the caches'
-``plan_step`` writes the step's plan into buffers that each cache keeps
-(``models/attention.py``), and the token ids or embeddings are copied into a
+``plan_step`` copies up the step's positions and slots (a slot cache's mask follows
+on the device: ``models/attention.py``), and token ids or embeddings are copied into a
 static input. The caches' state (K/V pages, the ring, the SSM's conv and h)
 is updated in place by the step itself. The one host value that shapes the
 launches is the paged pool's ``live_blocks``, which sets the paged kernel's

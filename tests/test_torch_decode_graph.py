@@ -4,7 +4,8 @@ On the CPU:
 
 - ``plan_step`` of the paged pool, the ring and MLA's latent cache returns
   the values it returned when it made fresh tensors each step, in tensors at
-  the same addresses step after step;
+  the same addresses step after step; the paged pool plans its blocks once,
+  when it is made, and its page table refuses writes;
 - ``eager_reason`` over every arch of the registry: on the CPU only the
   device keeps a step eager; a sharded cache part, parameters that autograd
   records, and a mesh (``test_torch_sharding.py``) are named first;
@@ -94,6 +95,25 @@ def test_paged_plan_keeps_its_values_at_fixed_addresses():
         got = _addresses(plan.block_start, plan.block_valid, plan.lengths, plan.slot)
         assert seen is None or got == seen
         seen = got
+
+
+def test_paged_pool_plans_its_blocks_once(monkeypatch):
+    """The blocks follow from the page table alone, fixed when the pool is
+    made: the six steps above plan none, and keep the values and addresses."""
+    from repro_torch.models import attention
+
+    calls = []
+    monkeypatch.setattr(attention, "plan_blocks",
+                        lambda *args: calls.append(args) or plan_blocks(*args))
+    test_paged_plan_keeps_its_values_at_fixed_addresses()
+    assert len(calls) == 1
+
+
+def test_paged_pool_page_table_refuses_writes():
+    """A table written after the blocks were planned would decode stale blocks."""
+    pool = PagedKVPool(DENSE, 2, 32, page_tokens=4, device=CPU)
+    with pytest.raises(ValueError, match="read-only"):
+        pool.page_table[0, 0] = pool.page_table[1, 0]
 
 
 @pytest.mark.parametrize("kind", ["ring", "latent"])
