@@ -7,8 +7,8 @@ Phases, each printing one JSON line:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: compile every ``src/repro_torch/csrc/*.cu`` (flash attention forward and
-   backward, paged attention, ring attention, the SSD scan forward and backward)
-   with nvcc for sm_90a, one nvcc per source, all started together;
+   backward, paged attention, ring attention, the SSD scan forward and backward,
+   AdamW) with nvcc for sm_90a, one nvcc per source, all started together;
 3. model: the analytic backend's calibration against the threaded engine
    (``repro_torch.model.run_calibration``) at the reference suite's point, 4
    clients, 2 donors, 1 worker, paced 1-page writes, with the clients' buffers
@@ -82,8 +82,11 @@ Phases, each printing one JSON line:
    as hymba is;
 15. train: ``repro_torch.launch.train.main`` at full width (rdmabox-paper-100m,
    batch 8, sequence 512, 30 steps, --offload of the first moment through the
-   engine), launches reset just before and held to 12 flash forwards and 12
-   flash backwards a step just after, the loss finite at every step and the
+   engine), launches reset just before and held to 12 flash forwards, 12
+   flash backwards and 2 AdamW launches (the norm, then every leaf's update) a
+   step just after (every training phase holds AdamW's 2 a step, but
+   ``train_grads``, which takes no step; ``optimized``'s DTensor parameters
+   take the kernel too, as their shards), the loss finite at every step and the
    mean of the last 5 below the first 5's by 0.1; step seconds, train tok/s,
    peak device memory; then 2 steps with --remat full (24 forwards a step);
 16. train_ssm: ``launch.train.main`` at full width and depth on mamba2-780m
@@ -129,7 +132,12 @@ Phases, each printing one JSON line:
    at mamba2-780m's training shape (B 8, S 512), the backward also at
    hymba-1.5b's N 16 (B 4); the scan's training rows give the bound at 3×TF32
    and at the FP64 tensor cores they run; the scan's three kernels also at
-   chunks 64 and 128 (phase 23);
+   chunks 64 and 128 (phase 23); AdamW's two launches at hymba-1.5b's 611
+   leaves (1.64 B bf16 parameters and gradients, f32 moments), one step held
+   to the plain loop's (the norm within 1e-6, parameters equal on 99.9 % and
+   one bf16 step apart elsewhere, moments within 2e-6), timed beside the plain
+   loop's step and PyTorch's ``_foreach_norm`` + ``_fused_adamw_`` on the
+   same leaves;
 22. steps: ``launch.steps``' step builders on a real 1×1 ``DeviceMesh``
    (``make_local_mesh``, nccl) at full width, random weights from seed 0,
    the reference's dry-run shapes cut to one card (``STEP_RUNS``):
@@ -203,6 +211,7 @@ from repro_torch import box  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.buffers import copy_parts  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.adamw import ops as aw  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_ref, flash_attention_bwd_ref, flash_attention_online)
@@ -272,33 +281,33 @@ SERVE_ARCHS = {   # arch: (batch, prompt, gen, {kernel: launches}); serving neve
     "rdmabox-paper-100m": (4, 64, 32, {"flash_attention": 12, "flash_attention_bwd": 0,
                                        "paged_attention": 384, "ring_attention": 0,
                                        "ssd_scan": 0,
-                                       "ssd_scan_bwd": 0}),
+                                       "ssd_scan_bwd": 0, "adamw": 0}),
     "musicgen-large": (4, 64, 32, {"flash_attention": 48, "flash_attention_bwd": 0,
                                    "paged_attention": 1536, "ring_attention": 0, "ssd_scan": 0,
-                                   "ssd_scan_bwd": 0}),
+                                   "ssd_scan_bwd": 0, "adamw": 0}),
     MOE_ARCH: (4, 64, 32, {"flash_attention": 24, "flash_attention_bwd": 0,
                            "paged_attention": 768, "ring_attention": 0, "ssd_scan": 0,
-                           "ssd_scan_bwd": 0}),
+                           "ssd_scan_bwd": 0, "adamw": 0}),
     HYBRID_ARCH: (4, 1280, 32, {"flash_attention": 32, "flash_attention_bwd": 0,
                                 "paged_attention": 0, "ring_attention": 1024, "ssd_scan": 32,
-                                "ssd_scan_bwd": 0}),
+                                "ssd_scan_bwd": 0, "adamw": 0}),
     MLA_ARCH: (4, 64, 32, {"flash_attention": 27, "flash_attention_bwd": 0,
                            "paged_attention": 0, "ring_attention": 0, "ssd_scan": 0,
-                           "ssd_scan_bwd": 0}),
+                           "ssd_scan_bwd": 0, "adamw": 0}),
     # the 32-35 B archs at full depth: 64.8-70.4 GB of bf16 weights beside
     # init_weights' one f32 draw of the largest tensor (serve_bytes)
     "command-r-35b": (4, 64, 32, {"flash_attention": 40, "flash_attention_bwd": 0,
                                   "paged_attention": 1280, "ring_attention": 0, "ssd_scan": 0,
-                                  "ssd_scan_bwd": 0}),
+                                  "ssd_scan_bwd": 0, "adamw": 0}),
     "qwen1.5-32b": (4, 64, 32, {"flash_attention": 64, "flash_attention_bwd": 0,
                                 "paged_attention": 2048, "ring_attention": 0, "ssd_scan": 0,
-                                "ssd_scan_bwd": 0}),
+                                "ssd_scan_bwd": 0, "adamw": 0}),
     "qwen2.5-32b": (4, 64, 32, {"flash_attention": 64, "flash_attention_bwd": 0,
                                 "paged_attention": 2048, "ring_attention": 0, "ssd_scan": 0,
-                                "ssd_scan_bwd": 0}),
+                                "ssd_scan_bwd": 0, "adamw": 0}),
     "llava-next-34b": (4, 64, 32, {"flash_attention": 60, "flash_attention_bwd": 0,
                                    "paged_attention": 1920, "ring_attention": 0, "ssd_scan": 0,
-                                   "ssd_scan_bwd": 0}),
+                                   "ssd_scan_bwd": 0, "adamw": 0}),
 }
 BIG_ARCHS = ("command-r-35b", "qwen1.5-32b", "qwen2.5-32b", "llava-next-34b")
 # One 80 GB card: what a run's weights, gradients and moments may take
@@ -952,7 +961,7 @@ def phase_serve(dev: torch.device) -> dict:
     launches = read_launches()
     want = {"flash_attention": cfg.num_layers, "flash_attention_bwd": 0,
             "paged_attention": cfg.num_layers * GEN, "ring_attention": 0,
-            "ssd_scan": 0, "ssd_scan_bwd": 0}
+            "ssd_scan": 0, "ssd_scan_bwd": 0, "adamw": 0}
     if launches != want:
         raise AssertionError(f"serving path launches {launches}, want {want}")
     logits = res.decode_logits.float()
@@ -978,7 +987,7 @@ LAUNCH_COUNTERS = {"flash_attention": (fa, "launches"),
                    "flash_attention_bwd": (fa, "bwd_launches"),
                    "paged_attention": (pa, "launches"), "ring_attention": (ra, "launches"),
                    "ssd_scan": (ssd, "launches"),
-                   "ssd_scan_bwd": (ssd, "bwd_launches")}
+                   "ssd_scan_bwd": (ssd, "bwd_launches"), "adamw": (aw, "launches")}
 
 
 def rel_err(full: torch.Tensor, dec: torch.Tensor) -> float:
@@ -1247,7 +1256,7 @@ def phase_serve_ssm() -> dict:
     torch.cuda.synchronize()
     launches = read_launches()
     want = {"flash_attention": 0, "flash_attention_bwd": 0, "paged_attention": 0,
-            "ring_attention": 0, "ssd_scan": cfg.num_layers, "ssd_scan_bwd": 0}
+            "ring_attention": 0, "ssd_scan": cfg.num_layers, "ssd_scan_bwd": 0, "adamw": 0}
     if launches != want:
         raise AssertionError(f"SSM serving path launches {launches}, want {want}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1527,6 +1536,148 @@ def ring_ms_by_splits(q, k, v, valid) -> dict:
         q, k, v, valid, D ** -0.5, splits=S)) for S in (1, 2, 4, 8, 16)}}
 
 
+def adamw_leaves(dev) -> tuple:
+    """hymba-1.5b's leaves as one training step meets them (shapes from the
+    meta model): bf16 gradients and parameters of seeded draws, f32 moments
+    that have seen a step."""
+    from repro_torch.models.transformer import Transformer
+    shapes = [p.shape for _, p in Transformer(get_config(HYBRID_ARCH), device="meta")
+              .named_parameters()]
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def draw(scale: float, dtype) -> list:
+        return [torch.randn(s, generator=gen, device=dev, dtype=torch.bfloat16).to(dtype)
+                .mul_(scale) for s in shapes]
+    return (draw(1e-3, torch.bfloat16), draw(2e-2, torch.bfloat16),
+            draw(1e-4, torch.float32), [t.square_() for t in draw(1e-4, torch.float32)])
+
+
+ADAMW_HYPER = dict(lr=3e-4, bc1=1 - 0.9 ** 3, bc2=1 - 0.95 ** 3, b1=0.9, b2=0.95, eps=1e-8,
+                   weight_decay=0.1)
+
+
+def adamw_check(grads: list, params: list, m: list, v: list) -> dict:
+    """One step of ``aw.adamw_fused`` at these leaves held to the plain
+    version from the same state, as the card test holds it: the norm within
+    1e-6 of ``clip_by_global_norm_plain``'s (both beside the norm summed in
+    f64); then ``adamw_plain``, leaf by leaf, on the gradients clipped by the
+    plain clip's formula from the kernel's norm: parameters equal in their
+    dtype on 99.9 % of elements and one step apart elsewhere, moments within
+    2e-6 relative. The update is held at the kernel's norm because m' =
+    b1 m + (1 − b1) g cancels to near 0 in some elements, where two norms a
+    rounding apart alone give any relative gap. The kernel updates
+    ``params`` in place; ``m`` and ``v`` are only read. Returns the errors."""
+    from repro_torch.kernels.adamw.ref import adamw_plain, clip_by_global_norm_plain
+    p_plain = [p.clone() for p in params]
+    m_k, v_k, gn = aw.adamw_fused(grads, params, m, v, **ADAMW_HYPER, max_norm=1.0)
+    names = [str(i) for i in range(len(grads))]
+    clipped, gn_plain = clip_by_global_norm_plain(dict(zip(names, grads)), 1.0)
+    del clipped
+    gn_f64 = torch.stack([g.double().square().sum() for g in grads]).sum().sqrt()
+    scale = torch.clamp(1.0 / gn.clamp(min=1e-12), max=1.0)   # the plain clip's, max_norm 1
+    ulps, unequal, elems, rel = 0, 0, 0, {"m": 0.0, "v": 0.0}
+    for i, n in enumerate(names):
+        new_m, new_v = adamw_plain({n: grads[i].float() * scale}, {n: m[i]}, {n: v[i]},
+                                   {n: p_plain[i]}, **ADAMW_HYPER)
+        view = torch.int16 if params[i].dtype == torch.bfloat16 else torch.int32
+        gap = (params[i].view(view).long() - p_plain[i].view(view).long()).abs()
+        ulps = max(ulps, int(gap.max()))
+        unequal += int(gap.count_nonzero())
+        elems += gap.numel()
+        for got, want, which in ((m_k[i], new_m[n], "m"), (v_k[i], new_v[n], "v")):
+            gap = (got - want).abs() / want.abs().clamp(min=1e-30)
+            rel[which] = max(rel[which], float(gap.max()))
+        del new_m, new_v
+    gn, gn_plain, gn_f64 = float(gn), float(gn_plain), float(gn_f64)
+    out = {"norm_rel_err": abs(gn - gn_plain) / gn_plain,
+           "norm_rel_err_f64": abs(gn - gn_f64) / gn_f64,
+           "plain_norm_rel_err_f64": abs(gn_plain - gn_f64) / gn_f64,
+           "param_max_ulps": ulps, "param_equal_share": 1 - unequal / elems,
+           "m_max_rel_err": rel["m"], "v_max_rel_err": rel["v"]}
+    if (out["norm_rel_err"] > 1e-6 or ulps > 1 or out["param_equal_share"] < 0.999
+            or rel["m"] > 2e-6 or rel["v"] > 2e-6):
+        raise AssertionError(f"adamw at {len(grads)} leaves off the plain version: {out}")
+    return out
+
+
+def adamw_row(dev, launches: int) -> dict:
+    """AdamW's row of the kernels line at ``hymba-1.5b.train``'s 611 leaves
+    (1.64 B bf16 parameters and gradients, f32 moments): one step held to
+    the plain loop's (``adamw_check``); then one step's two launches replayed
+    on buffers allocated once (its leaf table too), beside the plain loop's
+    step (about 25 launches a leaf) and the library's (``torch._foreach_norm``
+    and the norm's few scalar operations, then ``torch._fused_adamw_`` in two
+    groups, decay on ``ndim >= 2``), all on the same leaves. The library's
+    fused AdamW takes one dtype across its lists, so it runs on f32 copies of
+    the parameters and gradients (32 bytes an element, against the kernel's
+    24). The bound: 24 bytes an element (g read twice, p, m, v read and
+    written once)."""
+    from repro_torch.kernels.adamw.ref import adamw_plain, clip_by_global_norm_plain
+    grads, params, m, v = adamw_leaves(dev)
+    errors = adamw_check(grads, params, m, v)
+    torch.cuda.empty_cache()
+    pl = aw.plan_of(grads, params)
+    m_out, v_out = [torch.empty_like(t) for t in m], [torch.empty_like(t) for t in v]
+    table = aw.address_table(dev, grads, params, m, v, m_out, v_out)
+    partials = torch.empty(pl.norm_blocks, dtype=torch.float64, device=dev)
+    gn = torch.empty((), dtype=torch.float32, device=dev)
+    elems = sum(p.numel() for p in params)
+    nbytes = elems * (2 * 2 + 2 * 2 + 2 * 4 * 2)
+    rb, rby = bound_ms(nbytes, 20 * elems, torch.float32)
+    ms = device_ms(lambda: aw.launch_fused(pl, table, partials, gn, **ADAMW_HYPER,
+                                           max_norm=1.0), iters=5)
+    del m_out, v_out, table
+    torch.cuda.empty_cache()
+    names = [str(i) for i in range(len(params))]
+    g_d, p_d, m_d, v_d = (dict(zip(names, t)) for t in (grads, params, m, v))
+
+    def plain():
+        clipped, _ = clip_by_global_norm_plain(g_d, 1.0)
+        adamw_plain(clipped, m_d, v_d, p_d, **ADAMW_HYPER)
+    plain_ms = device_ms(plain, iters=1, reps=3)
+    del g_d, p_d, m_d, v_d
+    torch.cuda.empty_cache()
+    library_ms = adamw_library_ms(dev, grads, params, m, v)
+    return {
+        "name": "adamw", "route": "cuda", "source": "src/repro_torch/csrc/adamw.cu",
+        "replaces": "none: src/repro/optim/adamw.py update's elementwise ops (XLA's fusions)",
+        "launches": launches,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": rb,
+        "bound_by": rby, "bytes": nbytes, **errors,
+        "case": f"training: {HYBRID_ARCH} AdamW step, {len(params)} leaves",
+        "shape": {"leaves": len(params), "elements": elems, "params": "bfloat16",
+                  "grads": "bfloat16", "moments": "float32", "chunks": pl.n_chunks,
+                  "blocks": pl.update_blocks, "library_params_grads": "float32"},
+    }
+
+
+def adamw_library_ms(dev, grads: list, params: list, m: list, v: list) -> float:
+    """Device ms of PyTorch's own multi-tensor AdamW step on these leaves,
+    clipped to a global norm of 1: ``torch._foreach_norm`` of the gradients,
+    their norm and the clip's scale, then ``torch._fused_adamw_`` (which
+    divides each gradient by ``grad_scale``) once for the decayed leaves and
+    once for the rest. On f32 copies of ``grads`` and ``params``: the
+    library's fused AdamW takes one dtype across its lists. ``m`` and ``v``
+    are written in place."""
+    g32 = [g.float() for g in grads]
+    p32 = [p.float() for p in params]
+    step = torch.full((), 3.0, device=dev)
+    groups = [[i for i, p in enumerate(p32) if (p.ndim >= 2) == decay] for decay in (True, False)]
+    inv_scale = torch.empty((), device=dev)
+
+    def library():
+        total = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g32)))
+        torch.div(total.clamp(min=1e-12), 1.0, out=inv_scale).clamp_(min=1.0)
+        for idx, wd in zip(groups, (ADAMW_HYPER["weight_decay"], 0.0)):
+            torch._fused_adamw_([p32[i] for i in idx], [g32[i] for i in idx],
+                                [m[i] for i in idx], [v[i] for i in idx], [],
+                                [step] * len(idx), lr=ADAMW_HYPER["lr"],
+                                beta1=ADAMW_HYPER["b1"], beta2=ADAMW_HYPER["b2"],
+                                weight_decay=wd, eps=ADAMW_HYPER["eps"], amsgrad=False,
+                                maximize=False, grad_scale=inv_scale)
+    return device_ms(library, iters=5)
+
+
 def phase_kernels(dev: torch.device, main_err: dict, launches: dict,
                   kv_spill_launches: int, arch_launches: dict, train_launches: dict,
                   grads_launches: dict, ssm_train_launches: dict,
@@ -1645,10 +1796,12 @@ def phase_kernels(dev: torch.device, main_err: dict, launches: dict,
         dev, gen, (B, TRAIN_SEQ, hc.ssm_heads, hc.ssm_head_dim, hc.ssm_state, hc.ssm_chunk),
         grads_launches[HYBRID_ARCH]["ssd_scan_bwd"],
         f"train_grads: {HYBRID_ARCH} backward, N {hc.ssm_state}")
+    torch.cuda.empty_cache()
+    adamw = adamw_row(dev, train_launches["adamw"])
     emit({"kernels": [flash, flash_long, flash_mla, flash_hybrid, flash_long_mla, flash_train,
                       flash_bwd, flash_bwd_heads, flash_bwd_mla, flash_bwd_moe, paged,
                       paged_moe, paged_gqa, paged_long, ring, scan, scan_hybrid, scan_train,
-                      scan_bwd, scan_bwd_hybrid, *opt_rows]})
+                      scan_bwd, scan_bwd_hybrid, adamw, *opt_rows]})
 
 
 def check_engine_clean(stats: dict, what: str) -> dict:
@@ -1691,7 +1844,7 @@ def phase_serve_spill() -> dict:
     launches = read_launches()
     want = {"flash_attention": cfg.num_layers, "flash_attention_bwd": 0,
             "paged_attention": cfg.num_layers * GEN, "ring_attention": 0,
-            "ssd_scan": 0, "ssd_scan_bwd": 0}
+            "ssd_scan": 0, "ssd_scan_bwd": 0, "adamw": 0}
     if launches != want:
         raise AssertionError(f"serve --spill launches {launches}, want {want}")
     sp = res.spill
@@ -1918,7 +2071,7 @@ def phase_examples() -> None:
     gen = served.decode_logits.shape[1]
     want = {"flash_attention": cfg.num_layers, "flash_attention_bwd": 0,
             "paged_attention": cfg.num_layers * gen, "ring_attention": 0,
-            "ssd_scan": 0, "ssd_scan_bwd": 0}
+            "ssd_scan": 0, "ssd_scan_bwd": 0, "adamw": 0}
     if launches != want or not launches["paged_attention"]:
         raise AssertionError(f"serve_paged launches {launches}, want {want}")
     if served.spill is None or served.spill.kv.pool.device.type != "cuda" or not same_bytes(
@@ -2030,16 +2183,18 @@ def train_args(ckpt: Path, steps: int, *extra: str) -> list:
             str(ckpt), "--log-every", "5", *extra]
 
 
-def train_launch_counts(cfg, steps: int, forwards: int = 1) -> dict:
+def train_launch_counts(cfg, steps: int, forwards: int = 1, updates=None) -> dict:
     """The launches of ``steps`` train steps of ``cfg`` (its depth as given):
     ``forwards`` forwards (2 with --remat full) and one backward a step of
     flash in every attention layer and of the scan in every SSM layer (a
-    hybrid layer has both); no paged attention."""
+    hybrid layer has both); no paged attention; two AdamW launches (the norm,
+    then the update of every leaf) for each of ``updates`` optimizer steps
+    (``steps`` unless given: 0 for gradients alone)."""
     attn = cfg.num_layers if cfg.uses_attention else 0
     scan = cfg.num_layers if cfg.uses_ssm else 0
     return {"flash_attention": forwards * attn * steps, "flash_attention_bwd": attn * steps,
             "paged_attention": 0, "ring_attention": 0, "ssd_scan": forwards * scan * steps,
-            "ssd_scan_bwd": scan * steps}
+            "ssd_scan_bwd": scan * steps, "adamw": 2 * (steps if updates is None else updates)}
 
 
 def hold_train_launches(what: str, launches: dict, steps: int, forwards: int,
@@ -2255,7 +2410,7 @@ def phase_train_grads(smi: str) -> dict:
             kernel, loss_k, launched_k = grads_once(model, tokens, targets, plain=False,
                                                     host=host and dtype == "f32")
             plain, loss_p, launched_p = grads_once(model, tokens, targets, plain=True)
-            want = train_launch_counts(cfg, 1)
+            want = train_launch_counts(cfg, 1, updates=0)
             if launched_k != want or any(launched_p.values()):
                 raise AssertionError(f"{arch} {dtype}: launches {launched_k} with the "
                                      f"kernels, {launched_p} without")
@@ -3046,7 +3201,7 @@ def opt_scan(smi: str, mesh, run, launches: dict) -> list:
         model.requires_grad_(False)
         del opt
         want_serve = {"flash_attention": 0, "flash_attention_bwd": 0, "paged_attention": 0,
-                      "ring_attention": 0, "ssd_scan": L, "ssd_scan_bwd": 0}
+                      "ring_attention": 0, "ssd_scan": L, "ssd_scan_bwd": 0, "adamw": 0}
         if serve_launches != want_serve or not torch.isfinite(logits).all():
             raise AssertionError(f"optimized {SSM_ARCH} {knob}: prefill launches "
                                  f"{serve_launches}, want {want_serve}, or logits not finite")

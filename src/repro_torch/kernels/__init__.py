@@ -17,6 +17,12 @@ since the wrapper runs the plain version or launches the kernel itself.
 These are the counts ``chip_smoke.py`` bounds each kernel with. A
 kernel wrapper takes plain tensors only: a DTensor is refused
 (``distributed.sharding.refuse_dtensor``).
+
+AdamW (``adamw/``) is the exception: it runs over a whole model's leaves
+and has no custom op. ``optim.adamw.update`` asks ``adamw.ops.plain_reason``
+and sends leaves off the card (CPU and meta tensors, DTensors or not) to
+the plain loop (``adamw/ref.py``), which is what the dry run counts; on the
+card it hands the kernel a one-device mesh's DTensors as their shards.
 """
 
 from __future__ import annotations

@@ -153,6 +153,7 @@ def _train(args, cfg, run: RunConfig, device: torch.device, mesh) -> TrainResult
 
     losses: List[torch.Tensor] = []
     offload = None
+    adamw.reset()
     try:
         _sync(device)
         t0 = time.perf_counter()
@@ -180,6 +181,7 @@ def _train(args, cfg, run: RunConfig, device: torch.device, mesh) -> TrainResult
                           extra={"data_step": step + 1}, blocking=False)
                 if offload_mgr is not None:
                     offload_mgr.offload_tree("opt_m", opt_state.m, wait=False)
+        print("adamw:", adamw.snapshot())
         ckpt.wait()
         ckpt.save(args.steps, (params, opt_state),
                   extra={"data_step": args.steps})

@@ -18,6 +18,17 @@ only". The reference stacks its block parameters on a leading layer axis,
 so there a block's norm weights and biases are 2-D and decayed too; the
 port's are 1-D per layer and are not (only the decay of those vectors
 differs).
+
+On the card ``update`` runs the whole step in two launches of one
+hand-written kernel (``kernels/adamw``: the global norm, then the clip, both
+moments, the decay and the write-back over every leaf at once). DTensor
+leaves of a one-device mesh go to it as their shards, and their new moments
+come back as DTensors with the old ones' placements. Leaves off the card
+(CPU tensors, the dry run's meta tensors, DTensors or not) take the plain
+loop in ``kernels/adamw/ref.py``; ``kernels.adamw.ops.plain_reason``
+decides, and raises for leaves on the card the kernel has no instance for.
+Both clip in f32, as the reference does. ``snapshot()`` counts the steps
+each way and says why the last plain one was plain.
 """
 
 from __future__ import annotations
@@ -28,9 +39,15 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..configs.base import RunConfig
-from ..distributed.sharding import distribute
+from ..distributed.sharding import distribute, is_dtensor
+from ..kernels.adamw import ops
+from ..kernels.adamw.ref import adamw_plain, clip_by_global_norm_plain
 
 Tensors = Dict[str, torch.Tensor]
+
+fused_steps = 0                             # update steps through the kernel
+plain_steps = 0                             # and through the plain loop
+last_plain_reason: Optional[str] = None     # why the last plain step was plain
 
 
 class OptState(NamedTuple):
@@ -67,7 +84,7 @@ def local_state(state: OptState) -> OptState:
     def loc(tree: Optional[Tensors]) -> Optional[Tensors]:
         if tree is None:
             return None
-        return {n: t.to_local() if hasattr(t, "to_local") else t for n, t in tree.items()}
+        return {n: ops.local(t) for n, t in tree.items()}
     return OptState(state.step, loc(state.m), loc(state.v), loc(state.err))
 
 
@@ -89,13 +106,8 @@ def compress_grads(grads: Tensors, err: Tensors) -> Tuple[Tensors, Tensors]:
     return deq, new_err
 
 
-@torch.no_grad()
-def clip_by_global_norm(grads: Tensors, max_norm: float) -> Tuple[Tensors, torch.Tensor]:
-    """Grads scaled to a global L2 norm of at most ``max_norm``; (grads, norm).
-    The scale stays on the device: no host sync."""
-    gn = torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
-    scale = torch.clamp(max_norm / gn.clamp(min=1e-12), max=1.0)
-    return {n: g * scale for n, g in grads.items()}, gn
+# the reference's name; ``update`` on the card takes the kernel's norm
+clip_by_global_norm = clip_by_global_norm_plain
 
 
 @torch.no_grad()
@@ -104,22 +116,51 @@ def update(grads: Tensors, state: OptState, params: Tensors, run: RunConfig,
            ) -> Tuple[OptState, Dict[str, object]]:
     """One AdamW step: ``params`` are updated in place; returns (new state,
     {"lr", "grad_norm"})."""
+    global fused_steps, plain_steps, last_plain_reason
     step = int(state.step) + 1
     new_err = state.err
     if run.grad_compression and state.err is not None:
         grads, new_err = compress_grads(grads, state.err)
-    grads, gnorm = clip_by_global_norm(grads, run.grad_clip)
     lr = lr_schedule(step, run)
-    bc1, bc2 = 1 - b1 ** step, 1 - b2 ** step
-    new_m, new_v = {}, {}
-    for n, p in params.items():
-        g = grads[n].float()
-        m = b1 * state.m[n] + (1 - b1) * g
-        v = b2 * state.v[n] + (1 - b2) * g.square()
-        upd = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-        if p.ndim >= 2:   # decoupled weight decay on matrices only
-            upd = upd + run.weight_decay * p.float()
-        p.copy_((p.float() - lr * upd).to(p.dtype))
-        new_m[n], new_v[n] = m, v
+    hyper = dict(lr=lr, bc1=1 - b1 ** step, bc2=1 - b2 ** step, b1=b1, b2=b2, eps=eps,
+                 weight_decay=run.weight_decay)
+    names = list(params)
+    leaves = [[tree[n] for n in names] for tree in (grads, params, state.m, state.v)]
+    reason = ops.plain_reason(*leaves)
+    if reason is None:
+        m, v, gnorm = ops.adamw_fused(*([ops.local(t) for t in group] for group in leaves),
+                                      **hyper, max_norm=run.grad_clip)
+        new_m = {n: placed_as(state.m[n], t) for n, t in zip(names, m)}
+        new_v = {n: placed_as(state.v[n], t) for n, t in zip(names, v)}
+        fused_steps += 1
+    else:
+        clipped, gnorm = clip_by_global_norm_plain(grads, run.grad_clip)
+        new_m, new_v = adamw_plain(clipped, state.m, state.v, params, **hyper)
+        plain_steps += 1
+        last_plain_reason = reason
     new_state = OptState(torch.tensor(step, dtype=torch.int32), new_m, new_v, new_err)
     return new_state, {"lr": lr, "grad_norm": gnorm}
+
+
+def placed_as(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """``new``, this device's whole leaf, as a DTensor with ``old``'s mesh
+    and placements when ``old`` is one; else as it is."""
+    if not is_dtensor(old):
+        return new
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(new, old.device_mesh, old.placements, run_check=False)
+
+
+def snapshot() -> Dict[str, object]:
+    """Steps of ``update`` through the kernel and through the plain loop since
+    the last ``reset``, why the last plain one was plain, and the kernel's
+    launches."""
+    return {"fused_steps": fused_steps, "plain_steps": plain_steps,
+            "plain_reason": last_plain_reason, "launches": ops.launches}
+
+
+def reset() -> None:
+    global fused_steps, plain_steps, last_plain_reason
+    fused_steps = plain_steps = 0
+    last_plain_reason = None
+    ops.launches = 0

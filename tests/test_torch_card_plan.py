@@ -39,7 +39,7 @@ def test_every_arch_serves_on_the_card_at_full_depth(cs, arch):
     assert cs.serve_bytes(cfg) <= cs.CARD_BYTES
     if arch in cs.SERVE_ARCHS:     # one flash forward a layer, 32 paged decodes a layer
         B, prompt, gen, want = cs.SERVE_ARCHS[arch]
-        assert want["flash_attention_bwd"] == want["ssd_scan_bwd"] == 0
+        assert want["flash_attention_bwd"] == want["ssd_scan_bwd"] == want["adamw"] == 0
         if cfg.uses_attention and cfg.attention == "gqa" and cfg.window is None:
             assert want["flash_attention"] == cfg.num_layers
             assert want["paged_attention"] == cfg.num_layers * gen
@@ -75,6 +75,7 @@ def test_train_archs_state_fits_the_card(cs, arch):
     cfg = cs.train_arch_cfg(arch)
     want = cs.train_launch_counts(cfg, 30)
     assert want["flash_attention"] == want["flash_attention_bwd"] == 30 * cfg.num_layers
+    assert want["adamw"] == 60          # the norm and the update, a step
 
 
 def test_train_launch_counts_take_the_cut_config(cs):
@@ -82,7 +83,9 @@ def test_train_launch_counts_take_the_cut_config(cs):
     hybrid = replace(get_config("hymba-1.5b"), num_layers=3)
     assert cs.train_launch_counts(hybrid, 2) == {
         "flash_attention": 6, "flash_attention_bwd": 6, "paged_attention": 0,
-        "ring_attention": 0, "ssd_scan": 6, "ssd_scan_bwd": 6}
+        "ring_attention": 0, "ssd_scan": 6, "ssd_scan_bwd": 6, "adamw": 4}
+    # gradients alone (train_grads): no AdamW launch
+    assert cs.train_launch_counts(hybrid, 1, updates=0)["adamw"] == 0
     ssm = get_config("mamba2-780m")
     assert cs.train_launch_counts(ssm, 1, forwards=2)["ssd_scan"] == 2 * ssm.num_layers
 

@@ -918,6 +918,220 @@ def test_ssd_kernel_vs_plain_on_gpu(cuda):
 
 
 # ---------------------------------------------------------------------------
+# AdamW over every leaf (csrc/adamw.cu)
+# ---------------------------------------------------------------------------
+
+# name: (shape, parameter dtype, gradient dtype, storage offset in elements).
+# Sizes 1, 3, 4097 and two over 2**20; ndim 1, 2 and 3; bf16 and f32 each way;
+# one leaf 2 bytes off 16 (the kernel's element-a-thread path).
+ADAMW_LEAVES = {
+    "one": ((1,), torch.bfloat16, torch.bfloat16, 0),
+    "three": ((3,), torch.float32, torch.float32, 0),
+    "odd": ((17, 241), torch.bfloat16, torch.float32, 0),
+    "experts": ((3, 7, 49933), torch.float32, torch.bfloat16, 0),
+    "matrix": ((1024, 1025), torch.bfloat16, torch.bfloat16, 0),
+    "shifted": ((4097,), torch.bfloat16, torch.bfloat16, 1),
+}
+
+
+def adamw_leaves(cuda, seed: int, grad_scale: float):
+    """Parameters and one gradient set of ADAMW_LEAVES on the card."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    params, grads = {}, {}
+    for n, (shape, p_dtype, g_dtype, offset) in ADAMW_LEAVES.items():
+        size = int(np.prod(shape))
+        buf = torch.empty(size + offset, dtype=p_dtype, device=cuda)
+        params[n] = buf[offset:].view(shape)
+        params[n].copy_(torch.randn(shape, generator=gen, device=cuda))
+        grads[n] = (grad_scale * torch.randn(shape, generator=gen, device=cuda)).to(g_dtype)
+    return params, grads
+
+
+def test_adamw_plan_maps_chunks_to_leaves(monkeypatch):
+    """The plan the kernel walks (built on the host, here without a card):
+    each leaf's size, first chunk and flags, every chunk owned by the leaf it
+    lies in, the grids capped by the chunks; and the address table, a row of
+    g, p, m, v, m', v' a leaf."""
+    from repro_torch.kernels.adamw import ops as adamw_ops
+    monkeypatch.setattr(adamw_ops, "sm_count", lambda device: 2)
+    monkeypatch.setattr(adamw_ops, "_upload", lambda a, device: torch.from_numpy(a))
+    bf, f32 = torch.bfloat16, torch.float32
+    shapes = [(1,), (3,), (0,), (128, 256), (32769,), (2, 3, 7)]
+    dtypes = [(bf, bf), (f32, f32), (bf, bf), (f32, bf), (bf, f32), (bf, bf)]
+    key = tuple((torch.Size(s), g, p) for s, (g, p) in zip(shapes, dtypes))
+    plan = adamw_ops.plan.__wrapped__(torch.device("cpu"), key)    # not cached
+    chunks = [-(-int(np.prod(s)) // adamw_ops.CHUNK) for s in shapes]
+    assert plan.n_chunks == sum(chunks) == 6
+    assert (plan.norm_blocks, plan.update_blocks) == (6, 4)    # capped by chunks, then SMs
+    meta = plan.meta.view(-1, 3).tolist()
+    owner = plan.chunk_leaf.tolist()
+    first = 0
+    for i, (shape, (g, p)) in enumerate(zip(shapes, dtypes)):
+        n, leaf_first, flags = meta[i]
+        assert n == int(np.prod(shape))
+        assert leaf_first == first and owner[first:first + chunks[i]] == [i] * chunks[i]
+        assert flags == ((adamw_ops.DECAY if len(shape) >= 2 else 0)
+                         | (adamw_ops.GRAD_F32 if g == f32 else 0)
+                         | (adamw_ops.PARAM_F32 if p == f32 else 0))
+        first += chunks[i]
+    groups = [[torch.zeros(s) for s in shapes] for _ in range(6)]
+    table = adamw_ops.address_table(torch.device("cpu"), *groups).view(-1, 6).tolist()
+    assert table == [[group[i].data_ptr() for group in groups] for i in range(len(shapes))]
+
+
+def dtype_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a − b| in steps of their dtype (bf16 or f32), elementwise."""
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return (a.view(view).long() - b.view(view).long()).abs()
+
+
+@pytest.mark.parametrize("grad_scale", [1.0, 1e-4])     # clipped, and not
+def test_adamw_kernel_vs_plain_on_gpu(cuda, grad_scale):
+    """Three steps of ``update`` through the kernel, each held to the plain
+    loop from the same state: parameters equal in their dtype on 99.9 % of
+    elements and one step apart elsewhere, moments within 2e-6, the norm
+    within 1e-6; new moments each step, the old ones unchanged."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.kernels.adamw import ops as adamw_ops
+    from repro_torch.kernels.adamw.ref import adamw_plain, clip_by_global_norm_plain
+    from repro_torch.optim import adamw
+    run = RunConfig(learning_rate=1e-2, total_steps=10, warmup_steps=2, grad_clip=1.0)
+    params, _ = adamw_leaves(cuda, 0, grad_scale)
+    state = adamw.init(params, run)
+    adamw.reset()
+    for step in range(1, 4):
+        _, grads = adamw_leaves(cuda, step, grad_scale)
+        p_plain = {n: p.clone() for n, p in params.items()}
+        m_old = {n: t.clone() for n, t in state.m.items()}
+        v_old = {n: t.clone() for n, t in state.v.items()}
+        ptrs = {n: p.data_ptr() for n, p in params.items()}
+        new, metrics = adamw.update(grads, state, params, run)
+        clipped, gn_plain = clip_by_global_norm_plain(grads, run.grad_clip)
+        m_plain, v_plain = adamw_plain(
+            clipped, state.m, state.v, p_plain, lr=adamw.lr_schedule(step, run),
+            bc1=1 - 0.9 ** step, bc2=1 - 0.95 ** step, b1=0.9, b2=0.95, eps=1e-8,
+            weight_decay=run.weight_decay)
+        torch.cuda.synchronize()
+        assert adamw.snapshot() == {"fused_steps": step, "plain_steps": 0,
+                                    "plain_reason": None, "launches": 2 * step}
+        assert adamw_ops.launches == 2 * step
+        gn = float(metrics["grad_norm"])
+        assert abs(gn - float(gn_plain)) <= 1e-6 * float(gn_plain)
+        assert (float(gn_plain) > run.grad_clip) == (grad_scale == 1.0)
+        for n, p in params.items():
+            assert p.data_ptr() == ptrs[n] and p.dtype == ADAMW_LEAVES[n][1]
+            ulps = dtype_ulps(p, p_plain[n])
+            assert int(ulps.max()) <= 1 and float((ulps == 0).float().mean()) >= 0.999, n
+            for got, want, old, before in ((new.m[n], m_plain[n], state.m[n], m_old[n]),
+                                           (new.v[n], v_plain[n], state.v[n], v_old[n])):
+                assert got is not old and got.data_ptr() != old.data_ptr()
+                assert got.shape == want.shape and got.dtype == torch.float32
+                torch.testing.assert_close(got, want, rtol=2e-6, atol=1e-30)
+                assert torch.equal(old, before)          # the old moments untouched
+        state = new
+
+
+def test_adamw_kernel_no_host_sync_and_same_bits_on_gpu(cuda):
+    """``update`` through the kernel syncs nothing with the host, and two
+    runs from the same state give the same norm, parameters and moments in
+    every bit (the norm's partials are summed in one fixed order)."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.optim import adamw
+    run = RunConfig(learning_rate=1e-2, total_steps=10, warmup_steps=2, grad_clip=1.0)
+    params, grads = adamw_leaves(cuda, 5, 1.0)
+    state = adamw.init(params, run)
+    start = {n: p.clone() for n, p in params.items()}
+    adamw.update(grads, state, {n: p.clone() for n, p in params.items()}, run)   # warm-up
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(start[n])
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            new, metrics = adamw.update(grads, state, params, run)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        runs.append((metrics["grad_norm"].clone(), {n: p.clone() for n, p in params.items()},
+                     new))
+    (gn_a, p_a, s_a), (gn_b, p_b, s_b) = runs
+    assert torch.equal(gn_a, gn_b) and float(gn_a) > run.grad_clip
+    for n in params:
+        assert torch.equal(p_a[n], p_b[n]) and not torch.equal(p_a[n], start[n])
+        assert torch.equal(s_a.m[n], s_b.m[n]) and torch.equal(s_a.v[n], s_b.v[n])
+
+
+def test_adamw_kernel_takes_one_device_dtensors_on_gpu(cuda):
+    """DTensor leaves of a 1 × 1 mesh (the ``optimized`` runs' parameters and
+    ZeRO-1 moments) go through the kernel as their shards: the same step, in
+    every bit, as the same leaves as plain tensors, and the new moments come
+    back as DTensors with the old ones' placements."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.configs import RunConfig
+    from repro_torch.distributed.sharding import distribute
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.optim import adamw
+    run = RunConfig(learning_rate=1e-2, total_steps=10, warmup_steps=2, grad_clip=1.0)
+    params, grads = adamw_leaves(cuda, 6, 1.0)
+    params = {n: p.contiguous() for n, p in params.items()}
+    plain = {n: p.clone() for n, p in params.items()}
+    mesh_mod.close_mesh()
+    mesh = mesh_mod.make_local_mesh(1, 1, device=cuda)
+    try:
+        rep = {n: (Replicate(), Replicate()) for n in params}
+        zero1 = {n: (Shard(0), Replicate()) for n in params}
+        placed = {n: distribute(p, mesh, rep[n]) for n, p in params.items()}
+        state = adamw.init(placed, run, shardings=zero1, mesh=mesh)
+        adamw.reset()
+        new, metrics = adamw.update({n: distribute(g, mesh, rep[n]) for n, g in grads.items()},
+                                    state, placed, run)
+        want, want_metrics = adamw.update(grads, adamw.init(plain, run), plain, run)
+        torch.cuda.synchronize()
+        assert adamw.snapshot() == {"fused_steps": 2, "plain_steps": 0,
+                                    "plain_reason": None, "launches": 4}
+        assert torch.equal(metrics["grad_norm"], want_metrics["grad_norm"])
+        for n in params:
+            assert torch.equal(placed[n].to_local(), plain[n])
+            for got, old, ref in ((new.m[n], state.m[n], want.m[n]),
+                                  (new.v[n], state.v[n], want.v[n])):
+                assert got.placements == old.placements and got.device_mesh == mesh
+                assert torch.equal(got.to_local(), ref) and not old.to_local().any()
+    finally:
+        mesh_mod.close_mesh()
+
+
+# what the kernel has no instance for, on the card: (change to the leaves, error)
+ADAMW_REFUSED = {
+    "fp16_param": (lambda g, p, m, v: (g, [p[0].half(), *p[1:]], m, v), TypeError),
+    "fp16_grad": (lambda g, p, m, v: ([g[0].half(), *g[1:]], p, m, v), TypeError),
+    "bf16_moment": (lambda g, p, m, v: (g, p, [m[0].bfloat16(), *m[1:]], v), TypeError),
+    "strided": (lambda g, p, m, v: (g, [p[0].t(), *p[1:]], m, v), ValueError),
+    "on_cpu": (lambda g, p, m, v: (g, p, m, [v[0].cpu(), *v[1:]]), ValueError),
+    "sizes": (lambda g, p, m, v: (g, p, [m[1], m[0], *m[2:]], v), ValueError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ADAMW_REFUSED))
+def test_adamw_kernel_refuses_what_it_has_no_instance_for_on_gpu(cuda, case):
+    """Leaves on the card never fall back to the plain loop: a dtype the
+    kernel has no instance for raises TypeError; a strided leaf, one off the
+    card among them, or a moment of another size raises ValueError."""
+    from repro_torch.kernels.adamw import ops as adamw_ops
+    shapes = [(64, 32), (16,), (4, 8, 3)]
+    g = [torch.randn(s, device=cuda, dtype=torch.bfloat16) for s in shapes]
+    p = [torch.randn(s, device=cuda, dtype=torch.bfloat16) for s in shapes]
+    m = [torch.zeros(s, device=cuda) for s in shapes]
+    v = [torch.zeros(s, device=cuda) for s in shapes]
+    assert adamw_ops.plain_reason(g, p, m, v) is None
+    change, error = ADAMW_REFUSED[case]
+    with pytest.raises(error):
+        adamw_ops.plain_reason(*change(g, p, m, v))
+
+
+# ---------------------------------------------------------------------------
 # device selection
 # ---------------------------------------------------------------------------
 

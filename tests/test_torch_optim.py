@@ -56,15 +56,24 @@ def test_lr_schedule_matches_reference(step):
     assert abs(adamw.lr_schedule(step, run) - want) <= TOL * max(abs(want), 1e-3)
 
 
+def both(g: dict, dtype: str) -> tuple:
+    """The same gradients as torch tensors and JAX arrays of ``dtype``
+    (bf16 rounds the same way in both)."""
+    ours = {n: torch.from_numpy(a).to(getattr(torch, dtype)) for n, a in g.items()}
+    return ours, {n: jnp.asarray(a, getattr(jnp, dtype)) for n, a in g.items()}
+
+
+# bf16 gradients: both clip in f32 (the reference's bf16 * f32 scale promotes),
+# so a clipped bf16 gradient is not rounded to bf16 before the moments see it
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("max_norm", [0.5, 100.0])   # clipped, and not
-def test_clip_by_global_norm_matches_reference(max_norm):
-    g = grads_np(1)
-    out, gn = adamw.clip_by_global_norm({n: torch.from_numpy(a) for n, a in g.items()},
-                                        max_norm)
-    ref_out, ref_gn = ref_adamw.clip_by_global_norm({n: jnp.asarray(a) for n, a in g.items()},
-                                                    max_norm)
+def test_clip_by_global_norm_matches_reference(max_norm, dtype):
+    ours, theirs = both(grads_np(1), dtype)
+    out, gn = adamw.clip_by_global_norm(ours, max_norm)
+    ref_out, ref_gn = ref_adamw.clip_by_global_norm(theirs, max_norm)
     close(gn, ref_gn)
-    for n in g:
+    for n in ours:
+        assert out[n].dtype == torch.float32
         close(out[n], ref_out[n])
 
 
@@ -79,8 +88,9 @@ def test_compress_grads_matches_reference():
         close(err[n], ref_err[n])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])    # the gradients'
 @pytest.mark.parametrize("compression", [False, True])
-def test_update_matches_reference(compression):
+def test_update_matches_reference(compression, dtype):
     run = RunConfig(learning_rate=1e-2, total_steps=50, warmup_steps=2,
                     grad_compression=compression)
     ref_run = RefRunConfig(learning_rate=1e-2, total_steps=50, warmup_steps=2,
@@ -90,11 +100,9 @@ def test_update_matches_reference(compression):
     ref_params = {n: jnp.asarray(a) for n, a in p0.items()}
     state, ref_state = adamw.init(params, run), ref_adamw.init(ref_params, ref_run)
     for step in range(3):               # moments, bias corrections and residual carried
-        g = grads_np(10 + step)
-        state, m = adamw.update({n: torch.from_numpy(a) for n, a in g.items()}, state,
-                                params, run)
-        ref_params, ref_state, ref_m = ref_adamw.update(
-            {n: jnp.asarray(a) for n, a in g.items()}, ref_state, ref_params, ref_run)
+        ours, theirs = both(grads_np(10 + step), dtype)
+        state, m = adamw.update(ours, state, params, run)
+        ref_params, ref_state, ref_m = ref_adamw.update(theirs, ref_state, ref_params, ref_run)
         assert int(state.step) == int(ref_state.step) == step + 1
         close(m["grad_norm"], ref_m["grad_norm"])
         assert abs(m["lr"] - float(ref_m["lr"])) <= TOL * float(ref_m["lr"])
@@ -118,6 +126,48 @@ def test_update_keeps_each_parameter_s_dtype_in_place():
     assert params["w"].dtype == torch.bfloat16 and params["w"].lt(1).all()
     assert {n: p.data_ptr() for n, p in params.items()} == ids
     assert new.m["w"] is not old_m and float(old_m.abs().sum()) == 0.0
+
+
+@pytest.fixture
+def local_mesh():
+    from repro_torch.launch import mesh as mesh_mod
+    mesh_mod.close_mesh()
+    yield mesh_mod.make_local_mesh(1, 1, device="cpu")
+    mesh_mod.close_mesh()
+
+
+def test_update_takes_the_plain_loop_off_the_card_and_says_why(local_mesh):
+    """Leaves off the card never reach the kernel: CPU tensors and the dry
+    run's meta tensors, DTensors on a mesh or not. Each step goes through the
+    plain loop, counted in ``snapshot()`` with its reason, and launches
+    nothing."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.distributed.sharding import distribute
+    run = RunConfig(learning_rate=1e-2, total_steps=10, warmup_steps=1)
+
+    def leaves(device):
+        return {n: torch.ones(s, device=device) for n, s in SHAPES.items()}
+
+    replicated = {n: (Replicate(), Replicate()) for n in SHAPES}
+    on_mesh = dict(shardings=replicated, mesh=local_mesh)
+
+    def placed(device):
+        return {n: distribute(t, local_mesh, replicated[n]) for n, t in leaves(device).items()}
+
+    cpu_dtensors = placed("cpu")
+    cases = [("cpu tensors", leaves("cpu"), {}), ("meta tensors", leaves("meta"), {}),
+             ("cpu tensors", cpu_dtensors, on_mesh), ("meta tensors", placed("meta"), on_mesh)]
+    adamw.reset()
+    for k, (reason, params, placing) in enumerate(cases, start=1):
+        grads = {n: torch.ones_like(p) for n, p in params.items()}
+        adamw.update(grads, adamw.init(params, run, **placing), params, run)
+        assert adamw.snapshot() == {"fused_steps": 0, "plain_steps": k,
+                                    "plain_reason": reason, "launches": 0}
+    assert all(p.to_local().lt(1).all() for p in cpu_dtensors.values())   # stepped in place
+    adamw.reset()
+    assert adamw.snapshot() == {"fused_steps": 0, "plain_steps": 0, "plain_reason": None,
+                                "launches": 0}
 
 
 def test_adamw_converges_quadratic():
