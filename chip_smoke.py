@@ -180,7 +180,16 @@ Phases, each printing one JSON line:
    the serving scan at the serving shape against ``ssd_chunked`` (1e-3), the
    training forward and the backward at ``train_ssm``'s shape against their
    plain versions (1e-4), each a row of the kernels line (phase 21) with its
-   time, bound and launches.
+   time, bound and launches;
+24. moe_train: the published DeepSeek-V2-Lite stage's training pieces at the
+   benchmark's ``deepseek-v2-lite-5l.train`` shape (B 2 × S 4096): the flash
+   backward's row at H 16, D 192 (timed and held as phase 21's rows, one a
+   layer, 5 a step), and one MoE layer of the stage (64 experts, top-6, 768
+   rows an expert) forward and backward under the profiler: the grouped-GEMM
+   kernels (``GroupProblemShape``, the pattern ``expert_gemm_roofline.train``
+   reads) held to nine, their device ms beside the nine products' bound, the
+   other kernels named like them printed, and two forwards and backwards of
+   the layer equal in every bit.
 
 Each phase's seconds are printed as it ends and gathered in a ``phase_seconds``
 line. The last line is ``{"ok": true, "device": {...}}``. Any failure raises
@@ -3241,6 +3250,67 @@ def opt_scan(smi: str, mesh, run, launches: dict) -> list:
     return rows
 
 
+MOE_TRAIN = (2, 4096)        # deepseek-v2-lite-5l.train's batch and sequence
+
+
+def phase_moe_train() -> None:
+    """Phase 24 (module docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.moe import MoE, moe_apply
+    cfg = get_config("deepseek-v2-lite-5l")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, S = MOE_TRAIN
+    try:                         # held at the end, after the layer's checks
+        row, fault = flash_bwd_row(dev, gen, B, S, cfg.num_heads, cfg.num_kv_heads,
+                                   cfg.head_dim, cfg.num_layers,
+                                   "deepseek-v2-lite-5l.train's shape"), None
+    except AssertionError as e:
+        row, fault = None, str(e)
+    p = MoE(cfg, device=dev)
+    with torch.no_grad():
+        for t in p.parameters():
+            fan_in = t.shape[-2] if t.ndim == 3 else t.shape[0]
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev) * fan_in ** -0.5)
+    p.requires_grad_(True)
+    x = torch.randn(B, S, cfg.d_model, generator=gen, device=dev).bfloat16().requires_grad_()
+    dy = torch.randn(B, S, cfg.d_model, generator=gen, device=dev)
+
+    def fwd_bwd() -> list:
+        x.grad = None
+        p.zero_grad(set_to_none=True)
+        y, aux = moe_apply(p, x, cfg)
+        ((y.float() * dy).sum() + aux).backward()
+        return [y.detach(), aux.detach(), x.grad] + [t.grad for t in p.parameters()]
+
+    first = fwd_bwd()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = fwd_bwd()
+        torch.cuda.synchronize()
+    kernels = [(ev.name(), ev.duration_ns() * 1e-6) for ev in prof.profiler.kineto_results.events()
+               if ev.device_type() == torch.autograd.DeviceType.CUDA
+               and not ev.is_user_annotation()]
+    grouped = [(n, ms) for n, ms in kernels if "GroupProblemShape" in n]
+    alike = sorted({n[:160] for n, _ in kernels if "GroupProblemShape" not in n
+                    and ("cutlass" in n.lower() or "group" in n.lower())})
+    equal = all(torch.equal(a, b) for a, b in zip(first, again))
+    T, K, M, Fe, E = B * S, cfg.top_k, cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    bound = sum(bound_ms(nbytes, 2.0 * T * K * M * Fe, torch.bfloat16)[0] for nbytes in
+                [(T * K * (M + Fe) + E * M * Fe) * 2] * 9)
+    emit({"phase": "moe_train", "flash_bwd_row": row, "grouped_kernels": len(grouped),
+          "grouped_ms": sum(ms for _, ms in grouped), "grouped_bound_ms": bound,
+          "grouped_names": sorted({n[:160] for n, _ in grouped}), "alike_names": alike,
+          "layer_kernels": len(kernels), "layer_device_ms": sum(ms for _, ms in kernels),
+          "repeat_equal": equal, "flash_bwd_fault": fault})
+    if len(grouped) != 9 or not equal or fault:
+        raise AssertionError(f"moe_train: {len(grouped)} grouped kernels (9 wanted), "
+                             f"repeat equal {equal}, flash backward {fault}")
+    del p, x, dy, first, again
+    torch.cuda.empty_cache()
+
+
 PHASE_SECONDS: dict = {}
 
 
@@ -3284,6 +3354,7 @@ def main() -> None:
     arch_train_launches = timed("train_archs", phase_train_archs, smi)
     grads_launches = timed("train_grads", phase_train_grads, smi)
     timed("moe_repeat", phase_moe_repeat)
+    timed("moe_train", phase_moe_train)
     timed("train_resume", phase_train_resume)
     timed("steps", phase_steps, smi)
     opt = timed("optimized", phase_optimized, smi)

@@ -68,6 +68,7 @@ class ModelConfig:
     first_dense_layers: int = 0      # leading layers with a dense SwiGLU of d_ff, not the MoE
     norm_topk_prob: bool = True      # renormalise the top-k gates to sum to 1
     moe_dropless: bool = False       # keep every (token, expert) pair: no capacity
+    moe_seq_aux: bool = False        # the balance loss per sequence (DeepSeek-V2's seq_aux)
     yarn_factor: float = 0.0         # YaRN rope scaling factor (0: plain rope)
     yarn_original_max_pos: int = 0   # the context the rope was trained at
     yarn_beta_fast: float = 32.0     # rotations where interpolation ends (high freqs kept)
@@ -209,9 +210,9 @@ def replace(cfg, **kw):
     return dataclasses.replace(cfg, **kw)
 
 
-PORT_ONLY = ("first_dense_layers", "norm_topk_prob", "moe_dropless", "yarn_factor",
-             "yarn_original_max_pos", "yarn_beta_fast", "yarn_beta_slow", "yarn_mscale",
-             "yarn_mscale_all_dim")
+PORT_ONLY = ("first_dense_layers", "norm_topk_prob", "moe_dropless", "moe_seq_aux",
+             "yarn_factor", "yarn_original_max_pos", "yarn_beta_fast", "yarn_beta_slow",
+             "yarn_mscale", "yarn_mscale_all_dim")
 
 
 def shared_fields(cfg: ModelConfig) -> Dict[str, object]:

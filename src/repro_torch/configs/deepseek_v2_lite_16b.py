@@ -15,6 +15,15 @@ other 26 the MoE with gates as the softmax router gives them
 YaRN rope (factor 40 over 4,096 original positions, β 32 and 1, mscale and
 mscale_all_dim 0.707), RMSNorm eps 1e-6. 15.71 B parameters, 2.45 B active
 a token besides the embedding table.
+
+``STAGE`` is ``PUBLISHED`` cut to one pipeline stage for training: the dense
+layer and the first four MoE layers (one whole period and the floor of four
+after it), the embedding and the head, with the release's sequence-wise
+balance loss (``moe_seq_aux``, α = ``router_aux_weight`` 0.001). 2.840 B
+parameters, 623 M active a token. ``STAGE_REDUCED`` is its small twin for the
+CPU (``REDUCED``'s widths, the published structure). Neither is in
+``registry.ARCH_IDS``, the reference's list; ``registry.get_config`` names
+them ``deepseek-v2-lite-5l``.
 """
 
 from .base import ModelConfig, replace
@@ -53,4 +62,13 @@ PUBLISHED = replace(
     norm_eps=1e-6, yarn_factor=40.0, yarn_original_max_pos=4096, yarn_beta_fast=32.0,
     yarn_beta_slow=1.0, yarn_mscale=0.707, yarn_mscale_all_dim=0.707,
     sharding_overrides=(),
+)
+
+STAGE = replace(PUBLISHED, name="deepseek-v2-lite-5l", num_layers=5, moe_seq_aux=True)
+
+STAGE_REDUCED = replace(
+    REDUCED, name="deepseek-v2-lite-5l-reduced", d_ff=256, first_dense_layers=1,
+    norm_topk_prob=False, moe_dropless=True, moe_seq_aux=True, norm_eps=1e-6,
+    yarn_factor=40.0, yarn_original_max_pos=4096, yarn_beta_fast=32.0, yarn_beta_slow=1.0,
+    yarn_mscale=0.707, yarn_mscale_all_dim=0.707, sharding_overrides=(),
 )

@@ -10,6 +10,14 @@ remote paging system carrying real training state.
   PYTHONPATH=src python -m repro_torch.launch.train --arch rdmabox-paper-100m \\
       --steps 200 --batch 8 --seq 512
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v2-lite-5l \\
+      --steps 30 --batch 2 --seq 4096
+
+``--arch`` takes any id of ``configs.ARCH_IDS`` or of ``configs.registry.STAGE_IDS``
+(a published model cut to one pipeline stage: ``deepseek-v2-lite-5l``, the
+published DeepSeek-V2-Lite's dense layer and first four MoE layers). After
+its loop it prints the optimizer's counters (``adamw:``) and, for a MoE arch,
+each MoE layer's routing over the run (``routing:``, ``routing_snapshot()``).
 
 It runs on the card unless ``--device cpu`` is given (the kernels' plain
 versions, as in the tests). Every arch trains on either device. The step is
@@ -182,6 +190,8 @@ def _train(args, cfg, run: RunConfig, device: torch.device, mesh) -> TrainResult
                 if offload_mgr is not None:
                     offload_mgr.offload_tree("opt_m", opt_state.m, wait=False)
         print("adamw:", adamw.snapshot())
+        if cfg.uses_moe:
+            print("routing:", model.routing_snapshot())
         ckpt.wait()
         ckpt.save(args.steps, (params, opt_state),
                   extra={"data_step": args.steps})

@@ -45,16 +45,30 @@ over the sorted rows (``torch._grouped_mm``; each expert's rows end at an
 offset counted on the device), and each token's K rows are summed in order of
 k, weighted by their gates in f32, so the layer repeats bit for bit. No step
 waits for the host, so a decode step with it replays as a CUDA graph too.
-It serves; its gradient is not deterministic on the card (the gather of the
-sorted rows accumulates with atomics in the backward). ``cfg.norm_topk_prob``
-false takes the gates as the softmax router gives them, unnormalised.
+Where a gradient is wanted the same operations run inside ``_DroplessExperts``,
+whose backward has no atomics (autograd's of the gather of the sorted rows
+and of the combine's gathers would add into repeated rows): the three
+products' input and weight gradients are grouped products over the same
+rows, each gate's gradient a dot product a row, and each token's input
+gradient the sum of its K rows in order of k, in f32, so a training step
+repeats bit for bit too. ``cfg.norm_topk_prob`` false takes the gates as the
+softmax router gives them, unnormalised.
+
+The balance loss is the Switch-style one over the whole batch, or with
+``cfg.moe_seq_aux`` (the port's own, DeepSeek-V2's ``seq_aux``) per sequence:
+for each sequence of S tokens f_i = E/(K·S) · (pairs it sends to expert i)
+and P_i = the mean over its tokens of the router's probability of i, and
+aux = ``router_aux_weight`` · Σ_i f_i · P_i, averaged over the sequences, as
+the release's ``MoEGate`` computes it. It is computed only where a gradient
+is wanted (a step in ``no_grad``, serving, returns 0 for it).
 
 Every call adds its routing to a counter kept on the device
 (``MoE.routed``: pairs routed to each expert, and pairs dropped, summed over
 calls; one add a call, no host sync), which ``MoE.snapshot`` reads. The
 spans ``moe.route`` (router, top-k, sort), ``moe.experts`` (the expert
 products) and ``moe.combine`` (gates and the sum back to tokens) split the
-layer on a profiler's timeline.
+layer on a profiler's timeline, and ``moe.backward`` holds the dropless
+layer's backward.
 """
 
 from __future__ import annotations
@@ -195,19 +209,20 @@ def _slots(local_e: torch.Tensor, E: int, C: int):
 
 
 def _dispatch_core(xt: torch.Tensor, p, cfg: ModelConfig, offset: int, E_loc: int,
-                   wi: torch.Tensor, wg: torch.Tensor, wo: torch.Tensor
+                   wi: torch.Tensor, wg: torch.Tensor, wo: torch.Tensor, seqs: int = 1
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort-based capacity dispatch of ``xt`` (T, M) to the ``E_loc`` experts
     whose weights are ``wi``/``wg``/``wo``, global expert ids offset by
     ``offset`` (an EP slice): the reference's ``_dispatch_core``. Routes over
     all E experts with ``p.router``, keeps the pairs whose expert lies in
     [offset, offset + E_loc), capacity from T. Returns (y (T, M) f32, this
-    slice's part of the output; aux, over the global experts)."""
+    slice's part of the output; aux, over the global experts and ``seqs``
+    sequences of T/seqs tokens)."""
     T = xt.shape[0]
     dev = xt.device
 
     with span("moe.route"):
-        gate, expert_idx, counts, aux = _route(xt, p, cfg)
+        gate, expert_idx, counts, aux = _route(xt, p, cfg, seqs)
         C = capacity(T, cfg)
         local_e = expert_idx - offset
         local_e = torch.where((local_e >= 0) & (local_e < E_loc), local_e, E_loc)
@@ -230,11 +245,13 @@ def _dispatch_core(xt: torch.Tensor, p, cfg: ModelConfig, offset: int, E_loc: in
     return y, aux
 
 
-def _route(xt: torch.Tensor, p, cfg: ModelConfig):
+def _route(xt: torch.Tensor, p, cfg: ModelConfig, seqs: int = 1):
     """(gates (T, K) f32, expert ids (T, K), pairs each global expert took (E,)
     f32, aux): the softmax router's top-k, the gates renormalised to sum to 1
-    unless ``cfg.norm_topk_prob`` is false, and the load-balancing aux loss
-    (Switch-style, over the global experts)."""
+    unless ``cfg.norm_topk_prob`` is false, and the balance loss: over the
+    whole batch (Switch-style, aux = w·E·Σ_i mean_t(p_ti)·pairs_i/(T·K)), or
+    with ``cfg.moe_seq_aux`` over each of the ``seqs`` sequences of T/seqs
+    consecutive tokens (``_seq_aux``), then averaged."""
     T = xt.shape[0]
     E, K = cfg.num_experts, cfg.top_k
     probs = torch.softmax(xt.float() @ p.router.float(), dim=-1)     # (T, E)
@@ -246,59 +263,141 @@ def _route(xt: torch.Tensor, p, cfg: ModelConfig):
     flat_e = expert_idx.reshape(-1)                                   # (T·K,)
     ones = torch.ones(T * K, device=xt.device)
     counts = torch.zeros(E, device=xt.device).index_add_(0, flat_e, ones)
-    aux = cfg.router_aux_weight * E * torch.sum(probs.mean(dim=0) * (counts / (T * K)))
+    if cfg.moe_seq_aux:
+        aux = _seq_aux(probs, expert_idx, seqs, cfg)
+    else:
+        aux = cfg.router_aux_weight * E * torch.sum(probs.mean(dim=0) * (counts / (T * K)))
     return gate, expert_idx, counts, aux
 
 
-def _dropless(xt: torch.Tensor, p: MoE, cfg: ModelConfig
+def _seq_aux(probs: torch.Tensor, expert_idx: torch.Tensor, seqs: int, cfg: ModelConfig
+             ) -> torch.Tensor:
+    """The release's sequence-wise balance loss (``MoEGate`` with ``seq_aux``):
+    per sequence f_i = E/(K·S)·(its pairs to expert i), P_i = its tokens'
+    mean probability of i; w·Σ_i f_i·P_i averaged over the sequences. Zero
+    where no gradient is wanted, so serving does none of this work."""
+    if not (torch.is_grad_enabled() and probs.requires_grad):
+        return probs.new_zeros(())
+    T, E = probs.shape
+    K, S = cfg.top_k, T // seqs
+    picks = torch.zeros(seqs, E, device=probs.device).scatter_add_(
+        1, expert_idx.reshape(seqs, S * K), torch.ones(seqs, S * K, device=probs.device))
+    f = picks * (E / (K * S))                                         # exact: whole counts
+    return cfg.router_aux_weight * (f * probs.view(seqs, S, E).mean(dim=1)).sum(dim=1).mean()
+
+
+def _experts(xt: torch.Tensor, gate: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
+             wo: torch.Tensor, order: torch.Tensor, ends: torch.Tensor, row: torch.Tensor):
+    """The dropless layer's experts and combine: the pairs' rows gathered in
+    sorted order, the SwiGLU's three products grouped by expert, each token's
+    K rows (``row`` (T, K), pair (t, k)'s sorted row) weighted by their gates
+    and summed in order of k in f32. Returns (y (T, M) f32, and what the
+    backward keeps: the sorted rows, h, g, the products' output)."""
+    K = row.shape[1]
+    with span("moe.experts"):
+        rows = xt[order // K]                                         # (T·K, M) sorted
+        h = torch._grouped_mm(rows, wi, offs=ends)
+        g = torch._grouped_mm(rows, wg, offs=ends)
+        out = torch._grouped_mm(h * F.silu(g), wo, offs=ends)         # (T·K, M)
+    with span("moe.combine"):
+        y = out[row[:, 0]].float() * gate[:, :1]
+        for k in range(1, K):
+            y = y + out[row[:, k]].float() * gate[:, k:k + 1]
+    return y, rows, h, g, out
+
+
+def _t(w: torch.Tensor) -> torch.Tensor:
+    return w.transpose(-2, -1)
+
+
+class _DroplessExperts(torch.autograd.Function):
+    """``_experts`` with a backward of its own, in gathers and grouped
+    products only (no atomics: the same bits every run). For dy (T, M):
+
+    - each gate's gradient is the dot product of dy[t] with its pair's row;
+    - each pair's row gradient dy[t]·gate[t, k], gathered into sorted order;
+    - the products' gradients grouped by expert as the forward's are: the
+      input gradients against each expert's weights transposed, the weight
+      gradients rowsᵀ·d(out) over each expert's rows (``_grouped_mm``'s
+      grouping over the contracted dimension);
+    - each token's input gradient the sum of its K rows' in order of k, in
+      f32, rounded once to the input's dtype."""
+
+    @staticmethod
+    def forward(ctx, xt, gate, wi, wg, wo, order, ends, row):
+        y, rows, h, g, out = _experts(xt, gate, wi, wg, wo, order, ends, row)
+        ctx.save_for_backward(gate, wi, wg, wo, order, ends, row, rows, h, g, out)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        gate, wi, wg, wo, order, ends, row, rows, h, g, out = ctx.saved_tensors
+        T, K = row.shape
+        with span("moe.backward"):
+            dy = dy.float()
+            dgate = (out[row].float() * dy[:, None, :]).sum(-1)           # (T, K)
+            dout = (dy[:, None, :] * gate[:, :, None]).reshape(T * K, -1)[order].to(out.dtype)
+            a = h * F.silu(g)
+            da = torch._grouped_mm(dout, _t(wo), offs=ends).float()       # (T·K, F)
+            dwo = torch._grouped_mm(a.t(), dout, offs=ends)               # (E, F, M)
+            gf, sg = g.float(), torch.sigmoid(g.float())
+            dh = (da * gf * sg).to(h.dtype)                               # silu(g) = g·σ(g)
+            dg = (da * h.float() * sg * (1 + gf * (1 - sg))).to(g.dtype)
+            dwi = torch._grouped_mm(rows.t(), dh, offs=ends)              # (E, M, F)
+            dwg = torch._grouped_mm(rows.t(), dg, offs=ends)
+            drows = (torch._grouped_mm(dh, _t(wi), offs=ends).float()
+                     + torch._grouped_mm(dg, _t(wg), offs=ends).float())  # (T·K, M)
+            picked = drows[row]                                           # (T, K, M)
+            dx = picked[:, 0]
+            for k in range(1, K):
+                dx = dx + picked[:, k]
+        return (dx.to(rows.dtype), dgate, dwi, dwg, dwo, None, None, None)
+
+
+def _dropless(xt: torch.Tensor, p: MoE, cfg: ModelConfig, seqs: int = 1
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every (token, expert) pair of ``xt`` (T, M) through its expert: the
     pairs stably sorted by expert, each expert's rows ending at ``ends[e]``
     (counted on the device), the SwiGLU's three products grouped over those
     rows, and each token's K rows weighted by their gates and summed in order
-    of k in f32. Returns (y (T, M) f32, aux)."""
+    of k in f32 (``_experts``; through ``_DroplessExperts`` where a gradient is
+    wanted). Returns (y (T, M) f32, aux)."""
     if is_dtensor(xt):
         raise NotImplementedError("the dropless dispatch runs on plain tensors, not on a mesh")
     T = xt.shape[0]
     E, K = cfg.num_experts, cfg.top_k
     dev = xt.device
     with span("moe.route"):
-        gate, expert_idx, counts, aux = _route(xt, p, cfg)
+        gate, expert_idx, counts, aux = _route(xt, p, cfg, seqs)
         flat_e = expert_idx.reshape(-1)
         order = torch.argsort(flat_e, stable=True)                    # pairs by expert
         ends = torch.searchsorted(flat_e[order], torch.arange(E, device=dev, dtype=flat_e.dtype),
                                   right=True, out_int32=True)         # (E,) row ends
         row = torch.empty_like(order).scatter_(0, order, torch.arange(T * K, device=dev))
-    with span("moe.experts"):
-        rows = xt[order // K]                                         # (T·K, M) sorted
-        h = torch._grouped_mm(rows, p.wi, offs=ends)
-        g = torch._grouped_mm(rows, p.wg, offs=ends)
-        out = torch._grouped_mm(h * F.silu(g), p.wo, offs=ends)       # (T·K, M)
-    with span("moe.combine"):
         row = row.view(T, K)                                          # pair (t, k)'s row
-        y = out[row[:, 0]].float() * gate[:, :1]
-        for k in range(1, K):
-            y = y + out[row[:, k]].float() * gate[:, k:k + 1]
+    args = (xt, gate, p.wi, p.wg, p.wo, order, ends, row)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args[:5]):
+        y = _DroplessExperts.apply(*args)
+    else:
+        y = _experts(*args)[0]
     p.count(torch.cat([counts.long(), (T * K - ends[-1:]).long()]))   # rows past the last end
     return y, aux
 
 
-def _dispatch(xt: torch.Tensor, p: MoE, cfg: ModelConfig
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``_dispatch_core`` over all E experts: xt (T, M) → (y (T, M) f32, aux)."""
-    return _dispatch_core(xt, p, cfg, 0, cfg.num_experts, p.wi, p.wg, p.wo)
-
-
 def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, M) → (out in x's dtype, aux loss f32 scalar)."""
+    """x: (B, S, M) → (out in x's dtype, aux loss f32 scalar). The dropless
+    dispatch (``cfg.moe_dropless``) goes backward through a function of its
+    own (``_DroplessExperts``); the capacity dispatch through ``_Dispatch``
+    and ``_Combine`` and autograd's products."""
     if cfg.moe_shard_map:
         out = _moe_shard_map(p, x, cfg)
         if out is not None:
             return out
     B, S, M = x.shape
     xt = reshape_replicated(x, B * S, M)     # a step on a mesh: every token on every device
-    y, aux = _dropless(xt, p, cfg) if cfg.moe_dropless else _dispatch(xt, p, cfg)
+    y, aux = (_dropless(xt, p, cfg, B) if cfg.moe_dropless
+              else _dispatch_core(xt, p, cfg, 0, cfg.num_experts, p.wi, p.wg, p.wo, B))
     if cfg.num_shared_experts:
         y = y + swiglu(xt, p.shared_wi, p.shared_wg, p.shared_wo).float()
     return reshape_replicated(y, B, S, M).to(x.dtype), aux
@@ -357,7 +456,7 @@ def _moe_shard_map(p: MoE, x: torch.Tensor, cfg: ModelConfig
     E_loc = wi.shape[0]
     offset = mesh.get_local_rank("model") * E_loc if ep else 0
     y, aux = _dispatch_core(xt, SimpleNamespace(router=router), cfg, offset, E_loc,
-                            wi, wg, wo)
+                            wi, wg, wo, Bl)
     if shared:
         y = y + swiglu(xt, *shared).float()
     y = DTensor.from_local(y.reshape(Bl, S, M), mesh, pl(Shard(0), P), run_check=False)

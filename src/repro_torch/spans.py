@@ -34,7 +34,9 @@ The spans, and the spans each nests in:
   ``layer.ffn`` (the FFN's norm, MLP or MoE and residual add);
 - ``moe.route`` (the router, top-k and the pairs' sort), ``moe.experts``
   (the expert products) and ``moe.combine`` (the gates and the sum back to
-  each token), in ``layer.ffn`` (``models/moe.py``);
+  each token), in ``layer.ffn`` (``models/moe.py``); ``moe.backward``, the
+  dropless layer's backward (on the autograd engine's thread, in
+  ``train.backward``'s interval);
 - ``decode.logits``: the final norm and the head (in ``decode.step``);
 - ``prefill.step``: ``Transformer.prefill``;
 - ``train.forward``, ``train.backward``, ``train.optimizer``: the loss, its

@@ -98,8 +98,8 @@ def route_agreement(seed: int, tokens: int, small: bool) -> dict:
     mine, theirs = [], []
     route = moe_mod._route
 
-    def keep_route(xt, p, cfg):
-        out = route(xt, p, cfg)
+    def keep_route(xt, p, cfg, *rest):
+        out = route(xt, p, cfg, *rest)
         mine.append(out[1].sort(-1).values.cpu())
         return out
     moe_mod._route = keep_route
