@@ -42,6 +42,15 @@ Phases, each printing one JSON line:
    against the plain version's) and its backward at the reference suite's scan
    shapes, ragged tiles and the training shapes of mamba2-780m and hymba-1.5b,
    with and without h_final's cotangent, held to 1e-4 and to equal bits;
+   then ``latent``: the latent attention kernel at deepseek-v2-lite-16b.decode's
+   latent cache (B 64, 2,560 slots, lengths 1 to 2,560) and at its edge cases
+   (both instances in bf16 and f32, H 20, one valid slot, B 1, empty splits, a
+   mask with holes, a cache view), each run twice, equal bits, a CUDA graph's
+   replay equal to the eager call, o_lat within LATENT_TOL of an f64 oracle
+   beside the plain f32 version's error, q_lat or P rounded once to bf16 read
+   past LATENT_TOL; and ``latent_served``: the deepseek-v2-lite-16b.decode
+   cell for a few seconds through the benchmark's harness, its served tokens
+   held to the plain reference's ``served_gap`` limit;
 6. serve: ``repro_torch.launch.serve.main`` at full width (qwen1.5-0.5b, batch 4,
    prompt 64, 32 decode steps) with every kernel's launch count reset just
    before and read just after; the decode logits against one forward pass over
@@ -224,6 +233,8 @@ from repro_torch.kernels.adamw import ops as aw  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_ref, flash_attention_bwd_ref, flash_attention_online)
+from repro_torch.kernels.latent_attention import ops as la  # noqa: E402
+from repro_torch.kernels.latent_attention.ref import latent_attention_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
 from repro_torch.kernels.ring_attention import ops as ra  # noqa: E402
@@ -280,6 +291,17 @@ LONG_PROMPT = (1, 4096, 16, 64)
 LONG_DECODE = (4, 8192, 16)
 # hymba-1.5b.decode's ring (batch, position): every sequence past its window.
 RING_DECODE = (64, 2047)
+# deepseek-v2-lite-16b.decode's latent cache in one layer (sessions, slots:
+# chat_continue_64's capacity)
+LATENT_DECODE = (64, 2560)
+# The latent kernel's o_lat against the f64 oracle (kernels/latent_attention/
+# ref.py), max |err| / max |oracle|. At the cell's widths and lengths (B 8, 3
+# seeds, on a CPU) the plain f32 products read 1.2e-6 to 1.4e-6, q_lat rounded
+# once to bf16 2.5e-3 to 3.2e-3, P rounded once to bf16 1.6e-3 to 2.2e-3 (a
+# lower precision than the f32 decode). LATENT_TOL allows about twenty times
+# the f32 path's own rounding, for sums taken in another order, and sits some
+# fifty times below either fault.
+LATENT_TOL = 3e-5
 # The other archs' full-width serving runs (phase serve_archs): batch, prompt,
 # decode steps, and the launches each kernel must show. hymba's prompt of
 # 1280 is a multiple of its 256-token scan chunk, longer than its 1024-token
@@ -289,33 +311,41 @@ SERVE_ARCHS = {   # arch: (batch, prompt, gen, {kernel: launches}); serving neve
     # launches a backward
     "rdmabox-paper-100m": (4, 64, 32, {"flash_attention": 12, "flash_attention_bwd": 0,
                                        "paged_attention": 384, "ring_attention": 0,
-                                       "ssd_scan": 0,
+                                       "latent_attention": 0, "ssd_scan": 0,
                                        "ssd_scan_bwd": 0, "adamw": 0}),
     "musicgen-large": (4, 64, 32, {"flash_attention": 48, "flash_attention_bwd": 0,
-                                   "paged_attention": 1536, "ring_attention": 0, "ssd_scan": 0,
+                                   "paged_attention": 1536, "ring_attention": 0,
+                                   "latent_attention": 0, "ssd_scan": 0,
                                    "ssd_scan_bwd": 0, "adamw": 0}),
     MOE_ARCH: (4, 64, 32, {"flash_attention": 24, "flash_attention_bwd": 0,
-                           "paged_attention": 768, "ring_attention": 0, "ssd_scan": 0,
-                           "ssd_scan_bwd": 0, "adamw": 0}),
+                           "paged_attention": 768, "ring_attention": 0,
+                           "latent_attention": 0, "ssd_scan": 0, "ssd_scan_bwd": 0,
+                           "adamw": 0}),
     HYBRID_ARCH: (4, 1280, 32, {"flash_attention": 32, "flash_attention_bwd": 0,
-                                "paged_attention": 0, "ring_attention": 1024, "ssd_scan": 32,
+                                "paged_attention": 0, "ring_attention": 1024,
+                                "latent_attention": 0, "ssd_scan": 32,
                                 "ssd_scan_bwd": 0, "adamw": 0}),
     MLA_ARCH: (4, 64, 32, {"flash_attention": 27, "flash_attention_bwd": 0,
-                           "paged_attention": 0, "ring_attention": 0, "ssd_scan": 0,
-                           "ssd_scan_bwd": 0, "adamw": 0}),
+                           "paged_attention": 0, "ring_attention": 0,
+                           "latent_attention": 864, "ssd_scan": 0, "ssd_scan_bwd": 0,
+                           "adamw": 0}),
     # the 32-35 B archs at full depth: 64.8-70.4 GB of bf16 weights beside
     # init_weights' one f32 draw of the largest tensor (serve_bytes)
     "command-r-35b": (4, 64, 32, {"flash_attention": 40, "flash_attention_bwd": 0,
-                                  "paged_attention": 1280, "ring_attention": 0, "ssd_scan": 0,
+                                  "paged_attention": 1280, "ring_attention": 0,
+                                  "latent_attention": 0, "ssd_scan": 0,
                                   "ssd_scan_bwd": 0, "adamw": 0}),
     "qwen1.5-32b": (4, 64, 32, {"flash_attention": 64, "flash_attention_bwd": 0,
-                                "paged_attention": 2048, "ring_attention": 0, "ssd_scan": 0,
+                                "paged_attention": 2048, "ring_attention": 0,
+                                "latent_attention": 0, "ssd_scan": 0,
                                 "ssd_scan_bwd": 0, "adamw": 0}),
     "qwen2.5-32b": (4, 64, 32, {"flash_attention": 64, "flash_attention_bwd": 0,
-                                "paged_attention": 2048, "ring_attention": 0, "ssd_scan": 0,
+                                "paged_attention": 2048, "ring_attention": 0,
+                                "latent_attention": 0, "ssd_scan": 0,
                                 "ssd_scan_bwd": 0, "adamw": 0}),
     "llava-next-34b": (4, 64, 32, {"flash_attention": 60, "flash_attention_bwd": 0,
-                                   "paged_attention": 1920, "ring_attention": 0, "ssd_scan": 0,
+                                   "paged_attention": 1920, "ring_attention": 0,
+                                   "latent_attention": 0, "ssd_scan": 0,
                                    "ssd_scan_bwd": 0, "adamw": 0}),
 }
 BIG_ARCHS = ("command-r-35b", "qwen1.5-32b", "qwen2.5-32b", "llava-next-34b")
@@ -969,7 +999,7 @@ def phase_serve(dev: torch.device) -> dict:
     torch.cuda.synchronize()
     launches = read_launches()
     want = {"flash_attention": cfg.num_layers, "flash_attention_bwd": 0,
-            "paged_attention": cfg.num_layers * GEN, "ring_attention": 0,
+            "paged_attention": cfg.num_layers * GEN, "ring_attention": 0, "latent_attention": 0,
             "ssd_scan": 0, "ssd_scan_bwd": 0, "adamw": 0}
     if launches != want:
         raise AssertionError(f"serving path launches {launches}, want {want}")
@@ -995,6 +1025,7 @@ def phase_serve(dev: torch.device) -> dict:
 LAUNCH_COUNTERS = {"flash_attention": (fa, "launches"),
                    "flash_attention_bwd": (fa, "bwd_launches"),
                    "paged_attention": (pa, "launches"), "ring_attention": (ra, "launches"),
+                   "latent_attention": (la, "launches"),
                    "ssd_scan": (ssd, "launches"),
                    "ssd_scan_bwd": (ssd, "bwd_launches"), "adamw": (aw, "launches")}
 
@@ -1103,9 +1134,10 @@ def phase_serve_archs(smi: str) -> dict:
 @contextlib.contextmanager
 def plain_kernels():
     """Within the block, flash attention and the scan (each forward and
-    backward), paged attention and ring attention run their plain versions
+    backward), paged, ring and latent attention run their plain versions
     (those the CPU path runs) on the card's tensors, and launch nothing."""
-    saved = fa._launch, fa._launch_bwd, ssd._launch, ssd._launch_bwd, pa._launch, ra._launch
+    saved = (fa._launch, fa._launch_bwd, ssd._launch, ssd._launch_bwd, pa._launch, ra._launch,
+             la._launch)
     fa._launch = lambda q, k, v, causal, window, with_lse=False: flash_attention_online(
         q, k, v, causal=causal, window=window, q_offset=k.shape[1] - q.shape[1],
         return_lse=with_lse)
@@ -1119,10 +1151,13 @@ def plain_kernels():
         pa.paged_attention_plain(q, kv, starts, valid, lengths, pages_per_block=R))
     ra._launch = lambda q, k, v, valid, scale, splits: ra.ring_attention_plain(
         q, k, v, valid, scale)
+    la._launch = lambda q_lat, q_pe, c_kv, k_pe, valid, scale, splits: (
+        la.latent_attention_plain(q_lat, q_pe, c_kv, k_pe, valid, scale))
     try:
         yield
     finally:
-        fa._launch, fa._launch_bwd, ssd._launch, ssd._launch_bwd, pa._launch, ra._launch = saved
+        (fa._launch, fa._launch_bwd, ssd._launch, ssd._launch_bwd, pa._launch, ra._launch,
+         la._launch) = saved
 
 
 # (run, dtype, plain): the serving path in bf16, the same with its prefill
@@ -1165,6 +1200,9 @@ def decode_vs_forward(cfg, prompt: int, steps: int, seed: int) -> dict:
         ring = cfg.num_layers * steps if cfg.window and not plain else 0
         if launched[run]["ring_attention"] != ring:   # every window layer's decode, f32 too
             raise AssertionError(f"{run}: ring launches {launched[run]}, not {ring}")
+        latent = cfg.num_layers * steps if cfg.attention == "mla" and not plain else 0
+        if launched[run]["latent_attention"] != latent:   # every MLA layer's decode, f32 too
+            raise AssertionError(f"{run}: latent launches {launched[run]}, not {latent}")
         dvf[run] = rel_err(fwd[run], dec)
         del cache, dec
     out = {"decode_vs_forward": dvf, "launches": launched,
@@ -1265,7 +1303,8 @@ def phase_serve_ssm() -> dict:
     torch.cuda.synchronize()
     launches = read_launches()
     want = {"flash_attention": 0, "flash_attention_bwd": 0, "paged_attention": 0,
-            "ring_attention": 0, "ssd_scan": cfg.num_layers, "ssd_scan_bwd": 0, "adamw": 0}
+            "ring_attention": 0, "latent_attention": 0,
+            "ssd_scan": cfg.num_layers, "ssd_scan_bwd": 0, "adamw": 0}
     if launches != want:
         raise AssertionError(f"SSM serving path launches {launches}, want {want}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1545,6 +1584,233 @@ def ring_ms_by_splits(q, k, v, valid) -> dict:
         q, k, v, valid, D ** -0.5, splits=S)) for S in (1, 2, 4, 8, 16)}}
 
 
+def latent_inputs(dev, gen, B: int, H: int, R: int, dr: int, length: int, lengths, *,
+                  layers: int = 1, dtype=torch.bfloat16):
+    """q_lat (f32), q_pe, one layer's latent c_kv and rope key k_pe in ``dtype``
+    (layer ``layers − 1`` of that many) and the latent cache's mask for
+    ``lengths`` tokens cached a sequence (the slots below each count)."""
+    lengths = torch.as_tensor(np.asarray(lengths, np.int64), device=dev)
+    valid = torch.arange(length, device=dev)[None, :] < lengths[:, None]
+    q_lat = torch.randn(B, H, R, generator=gen, device=dev)
+    q_pe = torch.randn(B, H, dr, generator=gen, device=dev).to(dtype)
+    c_kv = torch.randn(layers, B, length, R, generator=gen, device=dev).to(dtype)[-1]
+    k_pe = torch.randn(layers, B, length, dr, generator=gen, device=dev).to(dtype)[-1]
+    return q_lat, q_pe, c_kv, k_pe, valid, lengths
+
+
+def latent_cell_lengths(dev, seed: int = 0) -> np.ndarray:
+    """deepseek-v2-lite-16b.decode's 64 sequences: 1, all 2,560 slots, either
+    side of the wrapper's first split boundary, the rest drawn over 1-2,560."""
+    B, length = LATENT_DECODE
+    S = la.split_count(B, length, la.sm_count(dev))
+    per = -(-length // S)
+    rng = np.random.default_rng(seed)
+    return np.concatenate([[1, length, per, per + 1],
+                           rng.integers(1, length + 1, B - 4)])
+
+
+def latent_scale() -> float:
+    """DeepSeek-V2-Lite's score scale as released (the cell's configuration),
+    (dn + dr)^-0.5 times YaRN's m²."""
+    from repro_torch.configs.deepseek_v2_lite_16b import PUBLISHED as cfg
+    from repro_torch.models.layers import softmax_scale
+    return softmax_scale(cfg, cfg.qk_nope_dim + cfg.qk_rope_dim)
+
+
+def latent_errors(out, q_lat, q_pe, c_kv, k_pe, valid, lengths, scale) -> dict:
+    """o_lat of the kernel, of the plain f32 version and of two faults (q_lat
+    rounded once to bf16; P rounded once to bf16 before P·c_kv), each against
+    the f64 oracle: max |err| / max |oracle|."""
+    oracle = latent_attention_ref(q_lat, q_pe, c_kv, k_pe, lengths - 1, scale)
+    peak = oracle.abs().max()
+
+    def rel(x):
+        return ((x.double() - oracle).abs().max() / peak).item()
+    plain = la.latent_attention_plain(q_lat, q_pe, c_kv, k_pe, valid, scale)
+    q_fault = la.latent_attention_plain(q_lat.bfloat16().float(), q_pe, c_kv, k_pe, valid,
+                                        scale)
+    c = c_kv.float()
+    s = (torch.einsum("bhr,bsr->bhs", q_lat, c)
+         + torch.einsum("bhd,bsd->bhs", q_pe.float(), k_pe.float())) * scale
+    s = torch.where(valid[:, None, :], s, la.NEG_INF)
+    p_fault = torch.einsum("bhs,bsr->bhr", torch.softmax(s, dim=-1).bfloat16().float(), c)
+    return {"kernel": rel(out), "plain": rel(plain),
+            "kernel_vs_plain": ((out - plain).abs().max() / peak).item(),
+            "fault_q_lat_bf16": rel(q_fault), "fault_p_bf16": rel(p_fault)}
+
+
+def latent_edge_cases(dev, gen):
+    """The latent kernel's cases beside the cell's shape, in bf16 and f32: each
+    instance (R, dr) at its model's heads, H 20 (two CTAs of heads, the second
+    with 4), one valid slot, B 1, forced splits of which some hold no valid
+    slot, a mask with holes, a cache view at layer 1 of 2. Yields dicts of the
+    wrapper's arguments plus ``what``, ``lengths`` (None: the mask is not a
+    prefix) and ``splits`` (None: the wrapper's choice)."""
+    def case(what, B, H, R, dr, length, lengths, *, splits=None, valid=None, **kw):
+        q_lat, q_pe, c_kv, k_pe, mask, lens = latent_inputs(dev, gen, B, H, R, dr, length,
+                                                            lengths, dtype=dtype, **kw)
+        if valid is not None:
+            mask = valid.to(dev)
+        return {"what": f"{what}, {str(dtype)[6:]}", "q_lat": q_lat, "q_pe": q_pe,
+                "c_kv": c_kv, "k_pe": k_pe, "valid": mask,
+                "lengths": None if valid is not None else lens, "splits": splits}
+
+    for dtype in (torch.bfloat16, torch.float32):
+        yield case("R 512 dr 64, H 16", 3, 16, 512, 64, 600, [600, 37, 333])
+        yield case("R 32 dr 16, H 4 (reduced)", 3, 4, 32, 16, 96, [96, 1, 50])
+        yield case("H 20: 16 heads, then 4", 2, 20, 512, 64, 300, [300, 129])
+        yield case("one valid slot", 4, 16, 512, 64, 256, [1, 1, 1, 1])
+        yield case("B 1", 1, 16, 512, 64, 2560, [2000])
+        yield case("forced splits, empty splits", 3, 16, 512, 64, 1024, [700, 5, 100],
+                   splits=8)
+        holes = torch.rand(2, 400, generator=torch.Generator().manual_seed(1)) < 0.3
+        holes[:, 0] = True
+        yield case("a mask with holes", 2, 16, 512, 64, 400, [400, 400], valid=holes,
+                   splits=2)
+        yield case("cache layer 1 of 2", 2, 16, 512, 64, 160, [160, 90], layers=2)
+
+
+def check_latent_case(case: dict, scale: float) -> dict:
+    """One case through the kernel twice: equal bits, and within LATENT_TOL of
+    the f64 oracle (a mask with holes: of the plain version), the faults past it."""
+    args = [case[n] for n in ("q_lat", "q_pe", "c_kv", "k_pe", "valid")]
+    B, H, R = args[0].shape
+    length = args[2].shape[1]
+    S = case["splits"] or la.split_count(B * -(-H // la.HEADS_PER_CTA), length,
+                                         la.sm_count(args[0].device))
+    out = la.latent_attention(*args, scale, splits=S)
+    again = la.latent_attention(*args, scale, splits=S)
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"latent {case['what']}: two runs differ")
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"latent {case['what']}: non-finite output")
+    row = {"case": case["what"], "B": B, "H": H, "R": R, "dr": args[1].shape[-1],
+           "slots": length, "dtype": str(args[2].dtype), "splits": S}
+    if case["lengths"] is None:
+        plain = la.latent_attention_plain(*args, scale)
+        err = ((out - plain).abs().max() / plain.abs().max()).item()
+        row["kernel_vs_plain"] = err
+    else:
+        row.update(latent_errors(out, *args, case["lengths"], scale))
+        err = row["kernel"]
+    if not err <= LATENT_TOL:
+        raise AssertionError(f"latent {case['what']}: {err:.3e} past LATENT_TOL {LATENT_TOL}")
+    return row
+
+
+def latent_decode_inputs(dev, gen, seed: int = 0):
+    """``deepseek-v2-lite-16b.decode``'s latent cache in one layer: 64 sequences
+    of ``latent_cell_lengths`` over 2,560 slots, the model's widths and heads."""
+    cfg = get_config(MLA_ARCH)
+    B, length = LATENT_DECODE
+    return latent_inputs(dev, gen, B, cfg.num_heads, cfg.kv_lora_rank, cfg.qk_rope_dim, length,
+                         latent_cell_lengths(dev, seed))
+
+
+def latent_work(q_lat, q_pe, c_kv, k_pe, valid, lengths) -> tuple[float, float]:
+    """(bytes, flops) of one call over the live slots: each live slot's latent
+    and rope key read once, q_lat, q_pe and the mask read, o_lat written;
+    2·H·(2R + dr) flops a live slot."""
+    B, H, R = q_lat.shape
+    dr = q_pe.shape[-1]
+    live = int(lengths.sum())
+    nbytes = (live * (R + dr) * c_kv.element_size() + 2 * q_lat.numel() * 4
+              + q_pe.numel() * q_pe.element_size() + valid.numel())
+    return nbytes, 2.0 * H * (2 * R + dr) * live
+
+
+@torch.no_grad()
+def phase_latent(dev: torch.device) -> dict:
+    """The latent kernel on the card: at deepseek-v2-lite-16b.decode's latent
+    cache (B 64, 2,560 slots, lengths from 1 to 2,560) against the f64 oracle,
+    beside the plain f32 version and the two bf16 faults, which must read past
+    LATENT_TOL; equal bits on two calls; a CUDA graph's replay equal to the
+    eager call; the edge cases (latent_edge_cases); its ms at 1 to 10
+    splits, beside the plain version's and its bound. Returns the kernels
+    line's row (its launches are serve_archs')."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    scale = latent_scale()
+    before = la.launches
+    q_lat, q_pe, c_kv, k_pe, valid, lengths = latent_decode_inputs(dev, gen)
+    args = (q_lat, q_pe, c_kv, k_pe, valid)
+    out = la.latent_attention(*args, scale)
+    again = la.latent_attention(*args, scale)
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError("latent serving shape: two runs differ")
+    errs = latent_errors(out, *args, lengths, scale)
+    print(f"latent attention at {MLA_ARCH}.decode's shape, max |err| / max |oracle| against "
+          "the f64 oracle: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (LATENT_TOL {LATENT_TOL})", flush=True)
+    if not errs["kernel"] <= LATENT_TOL:
+        raise AssertionError(f"latent serving shape: {errs['kernel']:.3e} past LATENT_TOL")
+    for fault in ("fault_q_lat_bf16", "fault_p_bf16"):
+        if not errs[fault] > LATENT_TOL:
+            raise AssertionError(f"latent {fault}: {errs[fault]:.3e} within LATENT_TOL: the "
+                                 "tolerance would pass a bf16-rounded decode")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        la.latent_attention(*args, scale)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = la.latent_attention(*args, scale)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(replayed, out):
+        raise AssertionError("latent serving shape: a graph's replay differs from the eager call")
+    cases = [check_latent_case(case, scale) for case in latent_edge_cases(dev, gen)]
+    for case in cases:
+        emit({"phase": "latent", **case})
+    nbytes, flops = latent_work(*args, lengths)
+    bound, bound_by = bound_ms(nbytes, flops, torch.bfloat16)
+    S = la.split_count(q_lat.shape[0], c_kv.shape[1], la.sm_count(dev))
+    row = {"name": "latent_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/latent_attention.cu",
+           "replaces": "none: src/repro/models/mla.py mla_decode's plain f32 products",
+           "launches": None, "max_rel_err": errs["kernel"], "errors": errs, "tol": LATENT_TOL,
+           "ms": device_ms(lambda: la.latent_attention(*args, scale)),
+           "plain_ms": device_ms(lambda: la.latent_attention_plain(*args, scale), iters=5),
+           "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes, "library_ms": None,
+           "splits": S, "live_slots": int(lengths.sum()),
+           "ms_by_splits": {n: device_ms(lambda: la.latent_attention(*args, scale, splits=n))
+                            for n in (1, 2, 3, 4, 5, 6, 8, 10)},
+           "case": f"serving: {MLA_ARCH} decode",
+           "shape": {"q_lat": list(q_lat.shape), "c_kv": list(c_kv.shape),
+                     "k_pe": list(k_pe.shape), "dtype": str(c_kv.dtype)}}
+    emit({"phase": "latent", **row, "phase_launches": la.launches - before})
+    return row
+
+
+LATENT_SERVED = (2718281828, 5.0)     # phase latent_served: the cell's seed, window seconds
+
+
+@torch.no_grad()
+def phase_latent_served() -> dict:
+    """deepseek-v2-lite-16b.decode through the benchmark's own harness for a
+    short window (bench/lib/harness.py, as ``bench/run.py`` runs the cell): the
+    served tokens of the decode that runs the latent kernel against the plain
+    reference's (bench/reference/mla_moe.py), ``served_gap`` held to the cell's
+    limit."""
+    sys.path.insert(0, str(ROOT))
+    from bench.lib import harness
+    seed, seconds = LATENT_SERVED
+    before = la.launches
+    res = harness.execute(f"{MLA_ARCH}.decode", seed=seed, seconds=seconds, trace=False)
+    out = {"phase": "latent_served", "cell": f"{MLA_ARCH}.decode", "seed": seed,
+           "seconds": seconds, "correct": res["correct"], "checks": res["checks"],
+           "metrics": res["metrics"], "latent_launches": la.launches - before,
+           "peak_mem_gb": res["device"]["memory_peak_bytes"] / 1e9}
+    emit(out)
+    if not res["correct"]:
+        raise AssertionError(f"{MLA_ARCH}.decode not correct: {res['checks']}")
+    if out["latent_launches"] == 0:
+        raise AssertionError(f"{MLA_ARCH}.decode launched no latent kernel")
+    harness.release(torch.device("cuda", 0))
+    return out
+
 def adamw_leaves(dev) -> tuple:
     """hymba-1.5b's leaves as one training step meets them (shapes from the
     meta model): bf16 gradients and parameters of seeded draws, f32 moments
@@ -1690,7 +1956,7 @@ def adamw_library_ms(dev, grads: list, params: list, m: list, v: list) -> float:
 def phase_kernels(dev: torch.device, main_err: dict, launches: dict,
                   kv_spill_launches: int, arch_launches: dict, train_launches: dict,
                   grads_launches: dict, ssm_train_launches: dict,
-                  arch_train_launches: dict, opt_rows: list) -> None:
+                  arch_train_launches: dict, more_rows: list) -> None:
     cfg = get_config(ARCH)
     gen = torch.Generator(device=dev).manual_seed(1)
     dt = torch.bfloat16
@@ -1810,7 +2076,7 @@ def phase_kernels(dev: torch.device, main_err: dict, launches: dict,
     emit({"kernels": [flash, flash_long, flash_mla, flash_hybrid, flash_long_mla, flash_train,
                       flash_bwd, flash_bwd_heads, flash_bwd_mla, flash_bwd_moe, paged,
                       paged_moe, paged_gqa, paged_long, ring, scan, scan_hybrid, scan_train,
-                      scan_bwd, scan_bwd_hybrid, adamw, *opt_rows]})
+                      scan_bwd, scan_bwd_hybrid, adamw, *more_rows]})
 
 
 def check_engine_clean(stats: dict, what: str) -> dict:
@@ -1852,7 +2118,7 @@ def phase_serve_spill() -> dict:
     torch.cuda.synchronize()
     launches = read_launches()
     want = {"flash_attention": cfg.num_layers, "flash_attention_bwd": 0,
-            "paged_attention": cfg.num_layers * GEN, "ring_attention": 0,
+            "paged_attention": cfg.num_layers * GEN, "ring_attention": 0, "latent_attention": 0,
             "ssd_scan": 0, "ssd_scan_bwd": 0, "adamw": 0}
     if launches != want:
         raise AssertionError(f"serve --spill launches {launches}, want {want}")
@@ -2079,7 +2345,7 @@ def phase_examples() -> None:
     ends_with(out, "SERVING DONE", "serve_paged")
     gen = served.decode_logits.shape[1]
     want = {"flash_attention": cfg.num_layers, "flash_attention_bwd": 0,
-            "paged_attention": cfg.num_layers * gen, "ring_attention": 0,
+            "paged_attention": cfg.num_layers * gen, "ring_attention": 0, "latent_attention": 0,
             "ssd_scan": 0, "ssd_scan_bwd": 0, "adamw": 0}
     if launches != want or not launches["paged_attention"]:
         raise AssertionError(f"serve_paged launches {launches}, want {want}")
@@ -2202,7 +2468,8 @@ def train_launch_counts(cfg, steps: int, forwards: int = 1, updates=None) -> dic
     attn = cfg.num_layers if cfg.uses_attention else 0
     scan = cfg.num_layers if cfg.uses_ssm else 0
     return {"flash_attention": forwards * attn * steps, "flash_attention_bwd": attn * steps,
-            "paged_attention": 0, "ring_attention": 0, "ssd_scan": forwards * scan * steps,
+            "paged_attention": 0, "ring_attention": 0, "latent_attention": 0,
+            "ssd_scan": forwards * scan * steps,
             "ssd_scan_bwd": scan * steps, "adamw": 2 * (steps if updates is None else updates)}
 
 
@@ -3210,7 +3477,8 @@ def opt_scan(smi: str, mesh, run, launches: dict) -> list:
         model.requires_grad_(False)
         del opt
         want_serve = {"flash_attention": 0, "flash_attention_bwd": 0, "paged_attention": 0,
-                      "ring_attention": 0, "ssd_scan": L, "ssd_scan_bwd": 0, "adamw": 0}
+                      "ring_attention": 0, "latent_attention": 0,
+                      "ssd_scan": L, "ssd_scan_bwd": 0, "adamw": 0}
         if serve_launches != want_serve or not torch.isfinite(logits).all():
             raise AssertionError(f"optimized {SSM_ARCH} {knob}: prefill launches "
                                  f"{serve_launches}, want {want_serve}, or logits not finite")
@@ -3332,6 +3600,9 @@ def main() -> None:
     timed("examples", phase_examples)
     torch.cuda.empty_cache()
     main_err = timed("kernels_vs_plain", phase_compare, dev)
+    latent = timed("latent", phase_latent, dev)
+    timed("latent_served", phase_latent_served)
+    torch.cuda.empty_cache()
     served = timed("serve", phase_serve, dev)
     launches = served["launches"]
     del served                                    # free qwen's weights and pool
@@ -3358,9 +3629,10 @@ def main() -> None:
     timed("train_resume", phase_train_resume)
     timed("steps", phase_steps, smi)
     opt = timed("optimized", phase_optimized, smi)
+    latent["launches"] = arch_launches[MLA_ARCH]["latent_attention"]
     timed("kernels", phase_kernels, dev, main_err, launches, kv_spill_launches,
           arch_launches, train_launches, grads_launches, ssm_train_launches,
-          arch_train_launches, opt["rows"])
+          arch_train_launches, [latent, *opt["rows"]])
     emit({"phase_seconds": PHASE_SECONDS, "total_s": time.perf_counter() - t_start})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("flash_attention", "flash_attention_bwd", "paged_attention", "ring_attention",
-           "ssd_scan", "ssd_scan_bwd", "adamw")
+           "latent_attention", "ssd_scan", "ssd_scan_bwd", "adamw")
 
 
 def _nvcc() -> str:

@@ -31,7 +31,10 @@ paged decode prints the page table's page-run coalescing before it. Then
 the decode steps' counts (``Transformer.decode_graphs``): on the card the
 steps replayed as CUDA graphs and the graphs captured by launch key, and
 the steps run eagerly by reason (the first warms the capture stream; on the
-CPU every step is eager). A MoE arch then prints each MoE layer's routing
+CPU every step is eager). An MLA arch then prints its decode's latent
+attention calls by route (``models/mla.py`` ``decode_routes``: through the
+kernel, or a sharded cache's plain products). A MoE
+arch then prints each MoE layer's routing
 counter (``Transformer.routing_snapshot``): the pairs routed in the prefill
 and the decode, the most and the mean an expert took, and the pairs dropped.
 
@@ -62,7 +65,7 @@ from repro_torch import box, resolve_device
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.kernels.paged_attention.ops import descriptor_stats
 from repro_torch.models import (Cache, HybridCache, PagedKVPool, Transformer,
-                                init_transformer)
+                                init_transformer, mla)
 
 PAGES_PER_BLOCK = 4
 # pages reserved per client for the KV spill arena (the heap slice of
@@ -248,6 +251,7 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
     if args.spill:
         session, kv = _open_kv_store(args, faults, device)
 
+    routes = mla.decode_routes()
     _sync(device)
     t0 = time.perf_counter()
     logits = model.prefill(prompts, cache)
@@ -300,6 +304,9 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
                   descriptor_stats(cache.page_table, PAGES_PER_BLOCK))
         print("decode cache after the last step:", _snapshots(cache))
         print("decode steps:", model.decode_graphs(cache).snapshot())
+        if cfg.attention == "mla":
+            print("latent decode calls:",
+                  {k: n - routes[k] for k, n in mla.decode_routes().items()})
         if cfg.uses_moe:
             print("routing (prefill and decode):", model.routing_snapshot())
     print("SERVING DONE")

@@ -8,15 +8,22 @@ latent to per-head keys and values and runs ``flash_attention_op`` at head
 dim ``qk_nope + qk_rope`` (192 at full width), with V padded up to that
 width and sliced back after, as the reference does. Decode attends in the
 latent space with W_kb absorbed into the query, in f32: plain products in
-the reference and here (no Pallas kernel there). Under ``mla_latent_psum``
-(the ``mla_lat`` knob, ``configs/optimized.py``) a step on a mesh places the
-absorbed query's latent axis on "model" as the cache's shards are, so the
-scores are a partial sum reduced once, as the reference's decode does.
+the reference (no Pallas kernel there); here, over an unsharded cache,
+``latent_attention`` (``kernels/latent_attention``: a hand-written kernel on
+the card, its plain version on the CPU). A cache sharded over a mesh keeps
+the plain products: under ``mla_latent_psum`` (the ``mla_lat`` knob,
+``configs/optimized.py``) a step on a mesh places the absorbed query's
+latent axis on "model" as the cache's shards are, so the scores are a
+partial sum reduced once, as the reference's decode does.
+
+``decode_routes()`` counts the decode calls by route: through the kernel
+(its launches, which a replayed decode graph adds to) and through the
+sharded plain products.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,7 +33,8 @@ from ..configs.base import ModelConfig
 from ..distributed.sharding import (Shards, flatten, is_dtensor, keep_grad_sharded,
                                     on_local_shards, settle, split_last)
 from ..kernels.flash_attention.ops import flash_attention_op
-from .attention import NEG_INF, SlotCache, SlotPlan
+from ..kernels.latent_attention import ops as latent_ops
+from .attention import SlotCache, SlotPlan
 from .layers import rms_norm, rope, softmax_scale, weight, yarn_attn_factor
 
 
@@ -107,6 +115,17 @@ class LatentCache(SlotCache):
         return self.bufs[1]
 
 
+
+sharded_calls = 0        # decode calls over a sharded cache (the plain products)
+
+
+def decode_routes() -> Dict[str, int]:
+    """Latent decode calls by route since the last reset: the kernel's
+    launches (added to at each replay of a decode graph) and the calls over a
+    sharded cache (the plain products)."""
+    return {"kernel": latent_ops.launches, "sharded": sharded_calls}
+
+
 def mla_decode(p: MLA, x: torch.Tensor, cfg: ModelConfig, cache: LatentCache,
                layer: int, plan: SlotPlan) -> torch.Tensor:
     """Absorbed-matmul decode, x: (B, 1, M). Writes this token's latent and
@@ -114,6 +133,7 @@ def mla_decode(p: MLA, x: torch.Tensor, cfg: ModelConfig, cache: LatentCache,
     q_nope·W_kb against ``c_kv`` plus q_pe against ``k_pe``, scaled by
     (dn + dr)^-0.5 (times YaRN's m², ``softmax_scale``); the latent output
     goes up through W_vb."""
+    global sharded_calls
     B = x.shape[0]
     H, R = cfg.num_heads, cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -121,25 +141,33 @@ def mla_decode(p: MLA, x: torch.Tensor, cfg: ModelConfig, cache: LatentCache,
     on_local_shards(lambda c, k: cache.write_step(layer, plan, c, k),
                     (c_new[:, 0], kpe_new[:, 0]), ((0, 1), (0, None)), (), batch=B,
                     heads=(R,))
-    c_kv, k_pe, valid = cache.c_kv[layer], cache.k_pe[layer], plan.valid
-    if cache.shards is not None:     # the cache's shards as DTensors: (B, S, R), (B, S, dr)
-        c_kv, k_pe, valid = (cache.shards.to_global(t, d, (R,)) for t, d in (
-            (c_kv, (0, 2)), (k_pe, (0, None)), (valid, (0, None))))
-    c_kv, k_pe = c_kv.float(), k_pe.float()
     wk_b = split_last(p.wk_b, H, dn).float()
     wv_b = split_last(p.wv_b, H, dv).float()
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), wk_b)    # absorb W_kb
+    scale = softmax_scale(cfg, dn + dr)
+    if cache.shards is None:     # einsum's (b, h, r) is a view batched over h: made whole
+        o_lat = latent_ops.latent_attention(q_lat.contiguous(), q_pe[:, 0], cache.c_kv[layer],
+                                            cache.k_pe[layer], plan.valid, scale)
+    else:
+        sharded_calls += 1
+        o_lat = _sharded_latent_attention(q_lat, q_pe[:, 0], cfg, cache, layer, plan, scale)
+    out = torch.einsum("bhr,rhd->bhd", o_lat, wv_b)
+    return out.reshape(B, 1, H * dv).to(x.dtype) @ p.wo
+
+
+def _sharded_latent_attention(q_lat: torch.Tensor, q_pe: torch.Tensor, cfg: ModelConfig,
+                              cache: LatentCache, layer: int, plan: SlotPlan,
+                              scale: float) -> torch.Tensor:
+    """``latent_attention_plain`` over a cache sharded on a mesh: the shards
+    as DTensors (B, S, R), (B, S, dr); under ``mla_latent_psum`` the scores
+    over the latent are a partial sum over R's shards, reduced once."""
+    R = cfg.kv_lora_rank
+    c_kv, k_pe, valid = (cache.shards.to_global(t, d, (R,)) for t, d in (
+        (cache.c_kv[layer], (0, 2)), (cache.k_pe[layer], (0, None)), (plan.valid, (0, None))))
     if cfg.mla_latent_psum and is_dtensor(c_kv):
         # q_lat's R on "model" like the cache's shards: the scores are a
         # partial sum over R, reduced once as (B, H, S), not a gathered cache
         q_lat = q_lat.redistribute(c_kv.device_mesh, c_kv.placements)
-        s = settle(torch.einsum("bhr,bsr->bhs", q_lat, c_kv))
-    else:
-        s = torch.einsum("bhr,bsr->bhs", q_lat, c_kv)
-    s = s + torch.einsum("bhd,bsd->bhs", q_pe[:, 0].float(), k_pe)
-    s = s * softmax_scale(cfg, dn + dr)
-    s = torch.where(valid[:, None, :], s, NEG_INF)
-    o_lat = torch.einsum("bhs,bsr->bhr", torch.softmax(s, dim=-1), c_kv)
-    out = torch.einsum("bhr,rhd->bhd", o_lat, wv_b)
-    return out.reshape(B, 1, H * dv).to(x.dtype) @ p.wo
-
+        return latent_ops.latent_attention_plain(q_lat, q_pe, c_kv, k_pe, valid, scale,
+                                                 reduce=settle)
+    return latent_ops.latent_attention_plain(q_lat, q_pe, c_kv, k_pe, valid, scale)

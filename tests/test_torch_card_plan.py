@@ -83,7 +83,8 @@ def test_train_launch_counts_take_the_cut_config(cs):
     hybrid = replace(get_config("hymba-1.5b"), num_layers=3)
     assert cs.train_launch_counts(hybrid, 2) == {
         "flash_attention": 6, "flash_attention_bwd": 6, "paged_attention": 0,
-        "ring_attention": 0, "ssd_scan": 6, "ssd_scan_bwd": 6, "adamw": 4}
+        "ring_attention": 0, "latent_attention": 0, "ssd_scan": 6, "ssd_scan_bwd": 6,
+        "adamw": 4}
     # gradients alone (train_grads): no AdamW launch
     assert cs.train_launch_counts(hybrid, 1, updates=0)["adamw"] == 0
     ssm = get_config("mamba2-780m")

@@ -318,7 +318,7 @@ def test_warm_up_then_captures_from_a_new_key_up_then_replays(fake_cuda):
     assert snap["replays"] + sum(snap["eager"].values()) == len(keys)
     assert body.keys == [31, 31, 32, 33, 34, 30]   # warm-up, then one capture a key
     assert {g.graph.pool for g in graphs.graphs.values()} == {("pool", 1)}
-    assert all(g.launches == (5, 0, 0, 0) for g in graphs.graphs.values())
+    assert all(g.launches == (5, 0, 0, 0, 0) for g in graphs.graphs.values())
     # before each replay the host waits for the one two replays back, then
     # records its own end on the same event
     events = [e for _, e in _FakeEvent.log]

@@ -11,7 +11,7 @@ variant, then the card's name and power limit::
 
     python tools/kernel_variants.py            # build and time every variant
     python tools/kernel_variants.py paged      # only one kernel's (ssd_scan, flash,
-                                               # flash_bwd, paged, ring)
+                                               # flash_bwd, paged, ring, latent)
     python tools/kernel_variants.py --check    # only apply the edits (no GPU)
 """
 
@@ -119,6 +119,29 @@ RING = {
     "l2_256": [('"cp.async.cg.shared.global [%0]', '"cp.async.cg.shared.global.L2::256B [%0]')],
 }
 
+# (old, new) edits of csrc/latent_attention.cu; timed at deepseek-v2-lite-16b.decode's
+# latent cache (B 64, 2,560 slots, lengths 1 to 2,560) at several split counts.
+# q_hi_only and p_hi_only keep one bf16 term of q_lat or of P (the precision
+# faults the f32 decode must not have): their error against the f64 oracle is
+# printed beside every variant's
+LATENT_SHAPE = "constexpr int kT = 32, kStages = 2;"
+SCORE_TERMS = "        for (int i = 0; i < 3; ++i) {\n          mma_bf16(s[2 * np]"
+PV_TERMS = "        for (int i = 0; i < 3; ++i) {\n          mma_bf16(acc[2 * dp]"
+LATENT = {
+    "shipped": [],
+    "stages_3": [(LATENT_SHAPE, "constexpr int kT = 32, kStages = 3;")],
+    "t_64": [(LATENT_SHAPE, "constexpr int kT = 64, kStages = 2;")],
+    "no_compute": [("    for (int ks = 0; ks < KS; ++ks) {",
+                    "    for (int ks = 0; ks < 0; ++ks) {"),
+                   ("      for (int dp = 0; dp < CW / 16; ++dp) {",
+                    "      for (int dp = 0; dp < 0; ++dp) {")],
+    "two_ctas": [("__launch_bounds__(Shape<R, DR, CW, T, STAGES>::kThreads)",
+                  "__launch_bounds__(Shape<R, DR, CW, T, STAGES>::kThreads, 2)")],
+    "no_reduce": [("      for (int w = 1; w < NW; ++w) {", "      for (int w = 1; w < 1; ++w) {")],
+    "q_hi_only": [(SCORE_TERMS, SCORE_TERMS.replace("i < 3", "i < 1"))],
+    "p_hi_only": [(PV_TERMS, PV_TERMS.replace("i < 3", "i < 1"))],
+}
+
 
 def write_variants(kind: str, variants: dict) -> dict:
     """Apply each variant's edits to csrc/<kind>.cu; returns name → source path."""
@@ -154,10 +177,11 @@ def build(paths: dict) -> dict:
 
 def main() -> None:
     kinds = {"ssd_scan": SSD, "flash": FLASH, "flash_bwd": FLASH_BWD, "paged": PAGED,
-             "ring": RING}
+             "ring": RING, "latent": LATENT}
     only = [a for a in sys.argv[1:] if a in kinds] or list(kinds)
     files = {"flash": "flash_attention", "flash_bwd": "flash_attention_bwd",
-             "paged": "paged_attention", "ring": "ring_attention"}
+             "paged": "paged_attention", "ring": "ring_attention",
+             "latent": "latent_attention"}
     sources = {k: write_variants(files.get(k, k), kinds[k]) for k in only}
     if "--check" in sys.argv:
         print(json.dumps({"variants": sorted(f"{k}/{v}" for k in sources for v in sources[k])}))
@@ -184,6 +208,8 @@ def main() -> None:
         time_paged(cs, libs["paged"], dev, gen, stream)
     if "ring" in libs:
         time_ring(cs, libs["ring"], dev, gen, stream)
+    if "latent" in libs:
+        time_latent(cs, libs["latent"], dev, gen, stream)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip())
@@ -315,6 +341,60 @@ def time_ring(cs, ring_libs, dev, gen, stream) -> None:
                                   "splits": S, "wrapper_splits": ra.split_count(
                                       B * Kh, length, ra.sm_count(dev)),
                                   "ms": cs.device_ms(call)}), flush=True)
+
+
+
+def time_latent(cs, latent_libs, dev, gen, stream) -> None:
+    """Every variant at deepseek-v2-lite-16b.decode's latent cache at 2, 3, 4
+    and 6 splits (the shipped source at 1 to 10), with its o_lat's error
+    against the f64 oracle at the wrapper's split count: once at lengths 1 to
+    2,560 (``chip_smoke.latent_cell_lengths``), once at the cell's traffic's
+    (histories 1,024-2,048 and a turn of up to 256 so far)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    cfg = get_config(cs.MLA_ARCH)
+    B, length = cs.LATENT_DECODE
+    traffic = np.random.default_rng(1).integers(1024, 2048 + 256 + 1, B)
+    for lengths_from, inputs in (
+            ("1-2560", cs.latent_decode_inputs(dev, gen)),
+            ("1024-2304", cs.latent_inputs(dev, gen, B, cfg.num_heads, cfg.kv_lora_rank,
+                                           cfg.qk_rope_dim, length, traffic))):
+        time_latent_at(cs, latent_libs, stream, lengths_from, *inputs)
+
+
+def time_latent_at(cs, latent_libs, stream, lengths_from, q_lat, q_pe, c_kv, k_pe, valid,
+                   lengths) -> None:
+    from repro_torch.kernels.latent_attention import ops as la
+    import torch
+    dev = q_lat.device
+    B, H, R = q_lat.shape
+    length, dr = c_kv.shape[1], k_pe.shape[-1]
+    scale = cs.latent_scale()
+    picked = la.split_count(B, length, la.sm_count(dev))
+    out = torch.empty_like(q_lat)
+    partial = torch.empty(B * H * 10 * (R + 2), device=dev)
+    bound = cs.bound_ms(*cs.latent_work(q_lat, q_pe, c_kv, k_pe, valid, lengths),
+                        torch.bfloat16)[0]
+    for name, (so, used) in latent_libs.items():
+        fn = ctypes.CDLL(str(so)).latent_attention_fwd
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float,
+                                                                     ctypes.c_void_p]
+
+        def call(S):
+            _build.check(fn(q_lat.data_ptr(), q_pe.data_ptr(), c_kv.data_ptr(),
+                            k_pe.data_ptr(), valid.data_ptr(), out.data_ptr(),
+                            partial.data_ptr(), B, H, R, dr, length, S, 0, scale, stream()),
+                         name)
+        call(picked)
+        torch.cuda.synchronize()
+        err = cs.latent_errors(out.clone(), q_lat, q_pe, c_kv, k_pe, valid, lengths,
+                               scale)["kernel"]
+        for S in range(1, 11) if name == "shipped" else (2, 3, 4, 6):
+            print(json.dumps({"kernel": "latent_attention", "variant": name, "splits": S,
+                              "lengths": lengths_from, "live_slots": int(lengths.sum()),
+                              "wrapper_splits": picked, "ms": cs.device_ms(lambda: call(S)),
+                              "bound_ms": bound, "max_rel_err": err, "ptxas": used}),
+                  flush=True)
 
 
 if __name__ == "__main__":
